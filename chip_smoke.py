@@ -18,9 +18,13 @@ and the repository's `ckpts/`. In order it:
    gives frames/s; a third gives the flow / smooth / render times; a fourth
    runs under torch.profiler for device time by kernel;
 4. holds each kernel against its plain torch version on the card, at the
-   shapes the main path gives it (the render warps at the bucket the main
-   path chose), and times kernel, plain version and (for the warps)
-   `F.grid_sample` as a yardstick, with CUDA events;
+   shapes the main path gives it (the cost volume at its five pyramid levels
+   in bf16 and one f32 shape; the render warps at the bucket the main path
+   chose, `hwarp` with 1 and 3 channels and at a width whose rows are not
+   16-byte aligned), and times kernel, plain version and (for the warps)
+   `F.grid_sample` as a yardstick, with CUDA events; then prints, for each
+   kernel, the sum over its shapes of launches x ms beside the device time
+   the profiler gave it in the run;
 5. checks the output: finite, [48,720,1280,3], and on a small f32 clip the
    card's output agrees with the CPU run of the plain versions (which the
    CPU tests hold against the JAX package);
@@ -53,6 +57,17 @@ _HBM_RATE = (
     ("H100", 3.35e12),  # H100 SXM, 80 GB HBM3
 )
 _F32_RATE = 67e12  # H100 SXM f32 outside the tensor cores, flop/s
+_BF16_RATE = 989e12  # H100 SXM dense bf16 on the tensor cores, flop/s
+
+# Shapes the main path gives the cost volume: 8 frame pairs a chunk, the
+# pyramid levels estimated for a 720-row clip padded to 768, finest first.
+_CV_SHAPES = ((8, 192, 320, 32), (8, 96, 160, 64), (8, 48, 80, 96), (8, 24, 40, 128), (8, 12, 20, 196))
+_CV_F32_SHAPE = (8, 48, 80, 96)  # compute_dtype="float32" at the middle level
+# Substring of each kernel's device functions in the profiler's names.
+_DEVICE_NAMES = {
+    "cost_volume": "cost_volume_", "bilinear_warp": "bilinear_warp_kernel",
+    "vwarp": "vwarp_kernel", "hwarp": "hwarp_",
+}
 
 # Tolerances of kernel vs plain version on the card. bf16 outputs: both sum
 # in f32 and round once to bf16, so they may differ by one bf16 ulp
@@ -80,13 +95,17 @@ def _hbm_rate(name: str) -> float:
 
 
 def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of `iters` single-call times, CUDA events."""
+    """Median of `iters` single-call times, CUDA events. The device first
+    spins for a fraction of a millisecond, so that the call is queued behind
+    it and the events enclose the device's time for the call, not the host's
+    time to issue it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(400_000)
         a.record()
         fn()
         b.record()
@@ -118,32 +137,53 @@ def _grid(h, w, u, v, dtype):
     return torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype).contiguous()
 
 
-def kernel_phase(hbm: float, d_main: int):
+def _bound(row: dict, hbm: float) -> None:
+    """bound_ms: the larger of bytes / memory rate and operations / peak rate
+    of their type (row["rate"]), from this run's shapes."""
+    t_bytes = row["bytes"] / hbm * 1e3
+    t_ops = (row["flops"] or 0) / row.pop("rate", _F32_RATE) * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_phase(hbm: float, d_main: int, launches: dict):
+    """Checks and times every kernel; returns (rows, per_shape): the one row
+    per kernel of the `{"kernels": ...}` line, timed at the kernel's largest
+    main-path shape, and every (kernel, shape) row with its launches a run."""
     from vstab_torch.kernels import (
         bilinear_warp, bilinear_warp_plain, cost_volume, cost_volume_plain,
         hwarp, hwarp_plain, vwarp, vwarp_plain,
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
+    per_shape, rows = [], {}
 
-    # -- cost volume: bf16 at levels idx1 and idx5 of a 720p chunk, r=4.
-    errs = []
-    for shape in ((8, 192, 320, 32), (8, 12, 20, 196)):
-        f1 = torch.randn(shape, generator=g, device="cuda").bfloat16()
-        f2 = torch.randn(shape, generator=g, device="cuda").bfloat16()
-        errs.append(_check(f"cost_volume {shape}", cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4)))
-    f1 = torch.randn((8, 192, 320, 32), generator=g, device="cuda").bfloat16()
-    f2 = torch.randn_like(f1)
-    n, h, w, c = f1.shape
-    nbytes = 2 * f1.numel() * 2 + n * h * w * 81 * 2
-    flops = n * h * w * 81 * c * 2
-    rows["cost_volume"] = dict(
-        shape=list(f1.shape), max_abs_err=max(errs),
-        ms=_time_ms(lambda: cost_volume(f1, f2, 4)),
-        plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, 4)),
-        bytes=nbytes, flops=flops, library_ms=None,
-    )
+    # -- cost volume, r=4: bf16 at the five levels of a 720p chunk (tensor
+    # cores; useful operations 2*81*C a pixel) and one f32 shape (CUDA cores).
+    # The forward pass launches it once a level for every chunk of pairs.
+    if launches["cost_volume"] % len(_CV_SHAPES):
+        raise AssertionError(f"cost_volume launches {launches['cost_volume']} are not a multiple of the levels")
+    per_level = launches["cost_volume"] // len(_CV_SHAPES)
+    tiny = torch.zeros((1, 2, 8, 8), device="cuda", dtype=torch.bfloat16)
+    _say(f"  launch floor: {_time_ms(lambda: cost_volume(tiny, tiny, 4)):.4f} ms "
+         "(cost_volume on 1x2x8x8 bf16, timed like every kernel: no kernel's time can be below it)")
+    for shape, dtype in [(s, torch.bfloat16) for s in _CV_SHAPES] + [(_CV_F32_SHAPE, torch.float32)]:
+        f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        n, h, w, c = shape
+        size = f1.element_size()
+        bf16 = dtype == torch.bfloat16
+        row = dict(
+            kernel="cost_volume", shape=list(shape) + [str(dtype).split(".")[1], "r=4"],
+            launches=per_level if bf16 else 0,
+            max_abs_err=_check(f"cost_volume {shape} {dtype}", cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4)),
+            ms=_time_ms(lambda: cost_volume(f1, f2, 4)),
+            plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, 4), iters=5),
+            bytes=(2 * f1.numel() + n * h * w * 81) * size, flops=n * h * w * 81 * c * 2,
+            rate=_BF16_RATE if bf16 else _F32_RATE, library_ms=None,
+        )
+        per_shape.append(row)
+        del f1, f2
 
     # -- feature warp: bf16 8x96x160x64 (level idx2), bf16 flow up to +-12 px
     # so that the kernel's +-8 clip matters; the plain version gets the
@@ -154,62 +194,89 @@ def kernel_phase(hbm: float, d_main: int):
     err = _check("bilinear_warp (8, 96, 160, 64)", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped))
     img_nchw = img.permute(0, 3, 1, 2)
     grid = _grid(96, 160, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
-    rows["bilinear_warp"] = dict(
-        shape=list(img.shape), max_abs_err=err,
+    per_shape.append(dict(
+        kernel="bilinear_warp", shape=list(img.shape), launches=launches["bilinear_warp"], max_abs_err=err,
         ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
         plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
         bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
         library_ms=_time_ms(lambda: F.grid_sample(
             img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-    )
+    ))
 
     # -- 1D render warps, f32, at the padded render width 1280 + 2(d+1): the
-    # buckets 16 and 63 (C=1 fields), 127, and the main path's bucket d_main,
-    # at which the rows are timed.
+    # buckets 16, 63 and 127 and the main path's bucket d_main, with 3 channels
+    # (the frame) and 1 (the fields that hwarp resamples). At d=16 the rows of
+    # 1314 floats do not start 16-byte aligned, so hwarp's 4-byte head and
+    # tail copies run. The rows are timed at d_main: vwarp and hwarp run once
+    # a render on the frame, hwarp the other times on a field.
     def field(shape, d):
         return (torch.rand(shape, generator=g, device="cuda") * 2.4 * d - 1.2 * d).contiguous()
 
     def width(d):
         return 1280 + 2 * (d + 1)
 
-    cases = [((48, 720, width(16), 3), 16), ((48, 720, width(63), 1), 63), ((48, 720, width(127), 3), 127)]
-    if d_main not in (16, 127):
-        cases.append(((48, 720, width(d_main), 3), d_main))
+    cases = {(d, c) for d in (16, 63, 127, d_main) for c in (1, 3)}
     errs = {"vwarp": [], "hwarp": []}
-    for shape, d in cases:
+    for d, c in sorted(cases):
+        shape = (48, 720, width(d), c)
         x = torch.rand(shape, generator=g, device="cuda")
         f = field(shape[:3], d)
         for mode in ("edge", "wrap"):
             errs["vwarp"].append(_check(f"vwarp {shape} d={d} {mode}", vwarp(x, f, d, mode), vwarp_plain(x, f, d, mode)))
             errs["hwarp"].append(_check(f"hwarp {shape} d={d} {mode}", hwarp(x, f, d, mode), hwarp_plain(x, f, d, mode)))
         del x, f
-    shape = (48, 720, width(d_main), 3)
-    x = torch.rand(shape, generator=g, device="cuda")
-    f = field(shape[:3], d_main)
-    fc = f.clamp(-d_main, d_main)
-    x_nchw = x.permute(0, 3, 1, 2)
-    zero = torch.zeros_like(fc)
-    for name, kern, plain, mode, (u, v) in (
-        ("vwarp", vwarp, vwarp_plain, "wrap", (zero, fc)),
-        ("hwarp", hwarp, hwarp_plain, "edge", (fc, zero)),
+    for name, kern, plain, mode, c, count in (
+        ("vwarp", vwarp, vwarp_plain, "wrap", 3, launches["vwarp"]),
+        ("hwarp", hwarp, hwarp_plain, "edge", 3, 1),
+        ("hwarp", hwarp, hwarp_plain, "edge", 1, launches["hwarp"] - 1),
     ):
+        shape = (48, 720, width(d_main), c)
+        x = torch.rand(shape, generator=g, device="cuda")
+        f = field(shape[:3], d_main)
+        fc = f.clamp(-d_main, d_main)
+        zero = torch.zeros_like(fc)
+        u, v = (zero, fc) if name == "vwarp" else (fc, zero)
+        x_nchw = x.permute(0, 3, 1, 2)
         grid = _grid(*shape[1:3], u, v, torch.float32)
-        rows[name] = dict(
-            shape=list(shape) + [f"d={d_main} {mode}"], max_abs_err=max(errs[name]),
+        row = dict(
+            kernel=name, shape=list(shape) + [f"d={d_main} {mode}"], launches=count,
+            max_abs_err=max(errs[name]),
             ms=_time_ms(lambda: kern(x, f, d_main, mode)),
-            plain_ms=_time_ms(lambda: plain(x, f, d_main, mode)),
+            plain_ms=_time_ms(lambda: plain(x, f, d_main, mode), iters=5),
             bytes=4 * (2 * x.numel() + f.numel()), flops=None,
             # border padding: grid_sample has no wrap mode
             library_ms=_time_ms(lambda: F.grid_sample(
                 x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
         )
-    for row in rows.values():
-        t_bytes = row["bytes"] / hbm * 1e3
-        t_ops = (row["flops"] or 0) / _F32_RATE * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        per_shape.append(row)
+        del x, f, fc, zero, u, v, grid
+    for row in per_shape:
+        _bound(row, hbm)
         _say(f"  kernel {json.dumps(row)}")
-    return rows
+        # A kernel's first row is its largest main-path shape; its error is
+        # the largest over all its shapes.
+        first = rows.setdefault(row["kernel"], dict(row))
+        first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"])
+    return rows, per_shape
+
+
+def device_time_line(per_shape, device_ms) -> None:
+    """For each kernel, the sum over its shapes of launches x ms (timed alone,
+    inputs as the timing loop leaves them in the caches) beside the device
+    time the profiler gave its device functions in one run of the main path."""
+    if device_ms is None:
+        _say("kernel device time: not measured (the profiler recorded no device time)")
+        return
+    out = {}
+    for name, key in _DEVICE_NAMES.items():
+        out[name] = {
+            "sum_launches_x_ms": sum(r["launches"] * r["ms"] for r in per_shape if r["kernel"] == name),
+            "profiler_ms": sum(ms for k, (ms, _) in device_ms.items() if key in k),
+            "profiler_launches": sum(n for k, (_, n) in device_ms.items() if key in k),
+        }
+        if out[name]["profiler_launches"] == 0:
+            raise AssertionError(f"the profiler saw no device function of {name} ({key!r})")
+    _say("kernel device time per run: " + json.dumps(out))
 
 
 def main_path():
@@ -279,14 +346,15 @@ def main_path():
         "frames_per_s": 48 / dt, "run_s": dt, **stage, "residual_bound_px": bound, "max_disp": d,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }))
-    profile(lambda: vstab_torch.stabilize(frames, params, cfg))
-    return launches, d
+    device_ms = profile(lambda: vstab_torch.stabilize(frames, params, cfg))
+    return launches, d, device_ms
 
 
-def profile(run) -> None:
+def profile(run):
     """One more run under torch.profiler: device time by kernel name, and the
     device's busy time (the union of its kernel and copy intervals) against
-    the run's wall time."""
+    the run's wall time. Returns {name: (ms, count)}, or None when the
+    profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -306,7 +374,7 @@ def profile(run) -> None:
         by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
     if not spans:
         _say("profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     busy_ns, end = 0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -323,6 +391,7 @@ def profile(run) -> None:
     rows = sorted(((ms, n, key) for key, (ms, n) in by_name.items()), reverse=True)
     for ms, count, key in rows[:15]:
         _say(f"  {ms:9.3f} ms  {count:5d}x  {key[:110]}")
+    return by_name
 
 
 def small_clip_check():
@@ -373,10 +442,11 @@ def main() -> int:
     from vstab_torch.kernels import _build
 
     _say(f"kernel build: {_build.build_all():.1f} s ({', '.join(_build.SOURCES)})")
-    launches, d_main = main_path()
+    launches, d_main, device_ms = main_path()
     t0 = time.perf_counter()
-    rows = kernel_phase(hbm, d_main)
+    rows, per_shape = kernel_phase(hbm, d_main, launches)
     _say(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    device_time_line(per_shape, device_ms)
     small_clip_check()
     schur_check()
 

@@ -51,6 +51,38 @@ def test_cost_volume_matches_plain(cuda, dtype, radius):
     )
 
 
+# bf16 goes to the tensor-core kernel: channel counts that take the 16-byte
+# (16), 8-byte (196) and 2-byte (21) staging copies and leave a channel tail;
+# widths whose output runs start 16-byte aligned (320), never (47) and on
+# some rows (20); N=1 keeps the tile count low, so the small tiles with dy
+# split over warps run, and (2, 64, 320) reaches the large tiles.
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize(
+    "shape", [(1, 9, 20, 196), (1, 33, 47, 21), (1, 12, 320, 16), (2, 64, 320, 16), (3, 41, 47, 196)]
+)
+def test_cost_volume_bf16_paths_match_plain(cuda, shape, radius):
+    g = torch.Generator().manual_seed(radius)
+    f1 = torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    f2 = torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    torch.testing.assert_close(
+        cost_volume(f1, f2, radius).float(), cost_volume_plain(f1, f2, radius).float(),
+        **_tol(torch.bfloat16),
+    )
+
+
+def test_cost_volume_bf16_takes_unaligned_views(cuda):
+    """A contiguous view that starts 2 bytes into its storage: the kernel
+    must pick the 2-byte staging copies from the addresses, not from C."""
+    g = torch.Generator().manual_seed(7)
+    flat = torch.randn((2, 1 + 2 * 17 * 24 * 16), generator=g).to(cuda, torch.bfloat16)
+    f1 = flat[0, 1:].view(2, 17, 24, 16)
+    f2 = flat[1, 1:].view(2, 17, 24, 16)
+    assert f1.is_contiguous() and f1.data_ptr() % 4 == 2
+    torch.testing.assert_close(
+        cost_volume(f1, f2, 4).float(), cost_volume_plain(f1, f2, 4).float(), **_tol(torch.bfloat16)
+    )
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
 def test_bilinear_warp_matches_plain_with_clipped_flow(cuda, dtype, flow_dtype):
@@ -71,6 +103,40 @@ def test_1d_warps_match_plain(cuda, mode, c, max_disp):
     field = (torch.rand((2, 37, 53), generator=g) * 2.4 - 1.2).mul(max_disp).to(cuda)
     torch.testing.assert_close(vwarp(img, field, max_disp, mode), vwarp_plain(img, field, max_disp, mode), rtol=0, atol=1e-5)
     torch.testing.assert_close(hwarp(img, field, max_disp, mode), hwarp_plain(img, field, max_disp, mode), rtol=0, atol=1e-5)
+
+
+# hwarp's row kernel: rows that start 16-byte aligned (1536x3) and rows that
+# do not (53x3, 53x1, 1314x1), one and three channels, and wrap with
+# max_disp >= W (taps wrap more than once).
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+@pytest.mark.parametrize("max_disp", [16, 127])
+@pytest.mark.parametrize("w,c", [(53, 3), (53, 1), (1536, 3), (1314, 1)])
+def test_hwarp_rows_match_plain(cuda, w, c, max_disp, mode):
+    g = torch.Generator().manual_seed(w + c)
+    img = torch.rand((2, 5, w, c), generator=g).to(cuda)
+    field = (torch.rand((2, 5, w), generator=g) * 2.4 - 1.2).mul(max_disp).to(cuda)
+    torch.testing.assert_close(
+        hwarp(img, field, max_disp, mode), hwarp_plain(img, field, max_disp, mode), rtol=0, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_hwarp_takes_unaligned_views_and_other_channel_counts(cuda, c):
+    g = torch.Generator().manual_seed(c)
+    flat = torch.rand((3 + 4 * 7 * 40 * c,), generator=g).to(cuda)
+    img = flat[3:].view(4, 7, 40, c)  # starts 12 bytes into its storage
+    field = (torch.rand((4, 7, 40), generator=g) * 30 - 15).to(cuda)
+    torch.testing.assert_close(hwarp(img, field, 16), hwarp_plain(img, field, 16), rtol=0, atol=1e-5)
+
+
+def test_hwarp_rows_too_long_for_shared_memory(cuda):
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand((1, 2, 30000, 3), generator=g).to(cuda)  # 2 x 360 KB a row
+    field = (torch.rand((1, 2, 30000), generator=g) * 30 - 15).to(cuda)
+    for mode in ("edge", "wrap"):
+        torch.testing.assert_close(
+            hwarp(img, field, 16, mode), hwarp_plain(img, field, 16, mode), rtol=0, atol=1e-5
+        )
 
 
 def test_warp_twopass_on_card_matches_cpu(cuda):

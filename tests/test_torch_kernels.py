@@ -51,7 +51,14 @@ def _close(got: torch.Tensor, want, atol=ATOL):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("shape,radius", [((2, 33, 47, 24), 2), ((1, 12, 20, 19), 4)])
+# The last three are the shapes at which the card's kernel takes its other
+# paths (196 and 21 channels: 8-byte and 2-byte staging copies, a channel
+# tail; W=20 and 47: output runs that start unaligned), so the oracle it is
+# held to there is itself held to the reference here.
+@pytest.mark.parametrize(
+    "shape,radius",
+    [((2, 33, 47, 24), 2), ((1, 12, 20, 19), 4), ((1, 6, 20, 196), 4), ((2, 9, 47, 21), 3), ((1, 5, 11, 21), 1)],
+)
 def test_cost_volume_plain_matches_xla(shape, radius):
     rng = np.random.default_rng(0)
     f1, f2 = _rand(rng, shape), _rand(rng, shape)
@@ -82,7 +89,12 @@ def test_warp_validity_matches_reference():
 
 
 @pytest.mark.parametrize("mode", ["edge", "wrap"])
-@pytest.mark.parametrize("shape,max_disp", [((2, 33, 47, 3), 16), ((2, 40, 33, 1), 63)])
+# (2, 5, 13, c) with max_disp 16 >= W: in wrap mode the taps wrap more than
+# once, which the card's row kernel is checked for against the plain version.
+@pytest.mark.parametrize(
+    "shape,max_disp",
+    [((2, 33, 47, 3), 16), ((2, 40, 33, 1), 63), ((2, 5, 13, 3), 16), ((2, 5, 13, 1), 127)],
+)
 def test_1d_warps_plain_match_xla(mode, shape, max_disp):
     rng = np.random.default_rng(3)
     img = _rand(rng, shape)

@@ -3,7 +3,7 @@
 Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, which `ctypes` loads. All sources are
 compiled at first use, one `nvcc` process per source, started together. A
-library is named by a hash of its source, the shared header and the flags,
+library is named by a hash of its source, every header of `csrc/` and the flags,
 so an edited source is rebuilt and an unchanged one is reused from
 `vstab_torch/_build/`.
 
@@ -67,7 +67,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> str:
     h = hashlib.sha256()
-    for fname in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -4,11 +4,14 @@
 tensors and runs `cost_volume_plain` for CPU tensors.
 
 Replaces `vstab/kernels/cost_volume.py:cost_volume_pallas`. Bound on the
-H100: bytes. At the finest estimated level of a 720p clip (8 pairs of
-192x320x32 bf16) the kernel must read 62.9 MB and write 79.6 MB; the design
-(one block per 8x32 pixel tile, f2 halo band staged in shared memory, 81 f32
-sums in registers) reads each f2 element about 2.5 times from device memory
-and each f1 element once (see the source's header).
+H100: bytes at the finest estimated level of a 720p clip (8 pairs of
+192x320x32 bf16: 62.9 MB read, 79.6 MB written), and from 64 channels up the
+2*81*C operations per pixel unless they run on the tensor cores. Design (see
+the source's header): bf16 inputs go through `mma.sync` on the tensor cores,
+a warp per (row, 8 pixels) holding the band of the product f2-row x f1-row
+in registers, operands staged as bf16 in shared memory by `cp.async`; f32
+inputs stay in full f32 on the CUDA cores, one thread per pixel. Both stage
+the output tile in shared memory and write it in full lines.
 
 Semantics (PWC-Net convention): for d=(dy,dx) in [-r,r]^2,
 out[n,y,x,k(d)] = mean_c f1[n,y,x,c] * f2[n,y+dy,x+dx,c], f2 zero outside

@@ -39,7 +39,40 @@ __device__ __forceinline__ int fix_index(int i, int n, int mode) {
   return mode ? ((i % n) + n) % n : clamp_i(i, 0, n - 1);
 }
 
+// Asynchronous copies from device memory into shared memory (cp.async): the
+// data bypasses the registers, and the issuing thread goes on. A thread's
+// copies are complete after cp_async_wait_all() in that thread, and visible
+// to the block after the next __syncthreads(). Both addresses must be
+// aligned to the copy's size.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 inline int launch_status() { return (int)cudaGetLastError(); }
+
+// Kernels that ask for more than 48 KB of dynamic shared memory must be
+// allowed to first; returns the CUDA error code (0 on success).
+template <typename K>
+inline int allow_dynamic_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 }  // namespace vstab
 
