@@ -19,9 +19,12 @@ and the repository's `ckpts/`. In order it:
    runs under torch.profiler for device time by kernel;
 4. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it (the cost volume at its five pyramid levels
-   in bf16 and one f32 shape; the render warps at the bucket the main path
-   chose, `hwarp` with 1 and 3 channels and at a width whose rows are not
-   16-byte aligned), and times kernel, plain version and (for the warps)
+   in bf16 and one f32 shape; the feature warp at the four levels it runs
+   on, plus one f32 shape for its vector kernel and one 3-channel shape for
+   its element kernel; the render warps at the bucket the main path chose,
+   `hwarp` with 1 and 3 channels and at a width whose rows are not 16-byte
+   aligned, `vwarp` on a per-pixel random field and on a smooth field of the
+   main path's kind), and times kernel, plain version and (for the warps)
    `F.grid_sample` as a yardstick, with CUDA events; then prints, for each
    kernel, the sum over its shapes of launches x ms beside the device time
    the profiler gave it in the run;
@@ -63,10 +66,12 @@ _BF16_RATE = 989e12  # H100 SXM dense bf16 on the tensor cores, flop/s
 # pyramid levels estimated for a 720-row clip padded to 768, finest first.
 _CV_SHAPES = ((8, 192, 320, 32), (8, 96, 160, 64), (8, 48, 80, 96), (8, 24, 40, 128), (8, 12, 20, 196))
 _CV_F32_SHAPE = (8, 48, 80, 96)  # compute_dtype="float32" at the middle level
+# Shapes it gives the feature warp: every level but the coarsest.
+_WARP_SHAPES = _CV_SHAPES[:4]
 # Substring of each kernel's device functions in the profiler's names.
 _DEVICE_NAMES = {
-    "cost_volume": "cost_volume_", "bilinear_warp": "bilinear_warp_kernel",
-    "vwarp": "vwarp_kernel", "hwarp": "hwarp_",
+    "cost_volume": "cost_volume_", "bilinear_warp": "bilinear_warp_",
+    "vwarp": "vwarp_", "hwarp": "hwarp_",
 }
 
 # Tolerances of kernel vs plain version on the card. bf16 outputs: both sum
@@ -147,9 +152,10 @@ def _bound(row: dict, hbm: float) -> None:
 
 
 def kernel_phase(hbm: float, d_main: int, launches: dict):
-    """Checks and times every kernel; returns (rows, per_shape): the one row
-    per kernel of the `{"kernels": ...}` line, timed at the kernel's largest
-    main-path shape, and every (kernel, shape) row with its launches a run."""
+    """Checks and times every kernel; returns (rows, per_shape, floor_ms):
+    the one row per kernel of the `{"kernels": ...}` line, timed at the
+    kernel's largest main-path shape, every (kernel, shape) row with its
+    launches a run, and the time this timing gives a near-empty launch."""
     from vstab_torch.kernels import (
         bilinear_warp, bilinear_warp_plain, cost_volume, cost_volume_plain,
         hwarp, hwarp_plain, vwarp, vwarp_plain,
@@ -165,7 +171,8 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
         raise AssertionError(f"cost_volume launches {launches['cost_volume']} are not a multiple of the levels")
     per_level = launches["cost_volume"] // len(_CV_SHAPES)
     tiny = torch.zeros((1, 2, 8, 8), device="cuda", dtype=torch.bfloat16)
-    _say(f"  launch floor: {_time_ms(lambda: cost_volume(tiny, tiny, 4)):.4f} ms "
+    floor_ms = _time_ms(lambda: cost_volume(tiny, tiny, 4))
+    _say(f"  launch floor: {floor_ms:.4f} ms "
          "(cost_volume on 1x2x8x8 bf16, timed like every kernel: no kernel's time can be below it)")
     for shape, dtype in [(s, torch.bfloat16) for s in _CV_SHAPES] + [(_CV_F32_SHAPE, torch.float32)]:
         f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -185,32 +192,56 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
         per_shape.append(row)
         del f1, f2
 
-    # -- feature warp: bf16 8x96x160x64 (level idx2), bf16 flow up to +-12 px
-    # so that the kernel's +-8 clip matters; the plain version gets the
-    # clipped flow.
-    img = torch.randn((8, 96, 160, 64), generator=g, device="cuda").bfloat16()
-    flow = ((torch.rand((8, 96, 160, 2), generator=g, device="cuda") * 24 - 12)).bfloat16()
-    clipped = flow.clamp(-8, 8)
-    err = _check("bilinear_warp (8, 96, 160, 64)", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped))
-    img_nchw = img.permute(0, 3, 1, 2)
-    grid = _grid(96, 160, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
-    per_shape.append(dict(
-        kernel="bilinear_warp", shape=list(img.shape), launches=launches["bilinear_warp"], max_abs_err=err,
-        ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
-        plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
-        bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
-        library_ms=_time_ms(lambda: F.grid_sample(
-            img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-    ))
+    # -- feature warp: the forward pass warps f2 at every level but the
+    # coarsest, once a level for every chunk of pairs, so its launches are
+    # four shapes the same number of times each. bf16 image and flow, the
+    # flow up to +-12 px so that the kernel's +-8 clip matters; the plain
+    # version gets the clipped flow. All four go to the vector kernel.
+    if launches["bilinear_warp"] % len(_WARP_SHAPES):
+        raise AssertionError(f"bilinear_warp launches {launches['bilinear_warp']} are not a multiple of the levels")
+    for shape in _WARP_SHAPES:
+        n, h, w, c = shape
+        img = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        flow = (torch.rand((n, h, w, 2), generator=g, device="cuda") * 24 - 12).bfloat16()
+        clipped = flow.clamp(-8, 8)
+        img_nchw = img.permute(0, 3, 1, 2)
+        grid = _grid(h, w, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
+        per_shape.append(dict(
+            kernel="bilinear_warp", shape=list(shape) + ["bfloat16", "bfloat16 flow to +-12"],
+            launches=launches["bilinear_warp"] // len(_WARP_SHAPES),
+            max_abs_err=_check(f"bilinear_warp {shape}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped)),
+            ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
+            plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
+            bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
+            library_ms=_time_ms(lambda: F.grid_sample(
+                img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+        ))
+        del img, flow, clipped, img_nchw, grid
+    # Checked, not timed: the vector kernel in f32 (C=8: two vectors a pixel,
+    # the runtime count) and the element kernel (C=3).
+    for shape, dtype in (((2, 48, 80, 8), torch.float32), ((2, 48, 80, 3), torch.bfloat16)):
+        img = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        flow = (torch.rand(shape[:3] + (2,), generator=g, device="cuda") * 24 - 12).to(dtype)
+        err = _check(f"bilinear_warp {shape} {dtype}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, flow.clamp(-8, 8)))
+        per_shape[-1]["max_abs_err"] = max(per_shape[-1]["max_abs_err"], err)
 
     # -- 1D render warps, f32, at the padded render width 1280 + 2(d+1): the
     # buckets 16, 63 and 127 and the main path's bucket d_main, with 3 channels
     # (the frame) and 1 (the fields that hwarp resamples). At d=16 the rows of
     # 1314 floats do not start 16-byte aligned, so hwarp's 4-byte head and
     # tail copies run. The rows are timed at d_main: vwarp and hwarp run once
-    # a render on the frame, hwarp the other times on a field.
-    def field(shape, d):
-        return (torch.rand(shape, generator=g, device="cuda") * 2.4 * d - 1.2 * d).contiguous()
+    # a render on the frame, hwarp the other times on a field. Two kinds of
+    # field: "random" draws every pixel in +-1.2 d, so neighbouring pixels tap
+    # unrelated rows; "smooth" is what the main path gives the warps, a 12x16
+    # grid of vertices a frame (drawn in +-d) upsampled to the frame as
+    # grid_to_flow upsamples the solved path. hwarp stages its row whole and
+    # takes the same time on both; vwarp gathers from device memory, so its
+    # main-path row is the smooth one and the random one launches 0 times.
+    def field(shape, d, kind="random"):
+        if kind == "random":
+            return (torch.rand(shape, generator=g, device="cuda") * 2.4 * d - 1.2 * d).contiguous()
+        coarse = (torch.rand((shape[0], 1, 12, 16), generator=g, device="cuda") * 2 - 1) * d
+        return F.interpolate(coarse, size=shape[1:], mode="bilinear", align_corners=False)[:, 0].contiguous()
 
     def width(d):
         return 1280 + 2 * (d + 1)
@@ -225,21 +256,25 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
             errs["vwarp"].append(_check(f"vwarp {shape} d={d} {mode}", vwarp(x, f, d, mode), vwarp_plain(x, f, d, mode)))
             errs["hwarp"].append(_check(f"hwarp {shape} d={d} {mode}", hwarp(x, f, d, mode), hwarp_plain(x, f, d, mode)))
         del x, f
-    for name, kern, plain, mode, c, count in (
-        ("vwarp", vwarp, vwarp_plain, "wrap", 3, launches["vwarp"]),
-        ("hwarp", hwarp, hwarp_plain, "edge", 3, 1),
-        ("hwarp", hwarp, hwarp_plain, "edge", 1, launches["hwarp"] - 1),
+    for name, kern, plain, mode, c, kind, count in (
+        ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", launches["vwarp"]),
+        ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
+        ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", 1),
+        ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", launches["hwarp"] - 1),
     ):
         shape = (48, 720, width(d_main), c)
         x = torch.rand(shape, generator=g, device="cuda")
-        f = field(shape[:3], d_main)
+        f = field(shape[:3], d_main, kind)
+        if kind == "smooth":
+            for m in ("edge", "wrap"):
+                errs[name].append(_check(f"{name} {shape} d={d_main} {m} smooth field", kern(x, f, d_main, m), plain(x, f, d_main, m)))
         fc = f.clamp(-d_main, d_main)
         zero = torch.zeros_like(fc)
         u, v = (zero, fc) if name == "vwarp" else (fc, zero)
         x_nchw = x.permute(0, 3, 1, 2)
         grid = _grid(*shape[1:3], u, v, torch.float32)
         row = dict(
-            kernel=name, shape=list(shape) + [f"d={d_main} {mode}"], launches=count,
+            kernel=name, shape=list(shape) + [f"d={d_main} {mode}"], field=kind, launches=count,
             max_abs_err=max(errs[name]),
             ms=_time_ms(lambda: kern(x, f, d_main, mode)),
             plain_ms=_time_ms(lambda: plain(x, f, d_main, mode), iters=5),
@@ -249,21 +284,31 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
                 x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
         )
         per_shape.append(row)
+        if name == "hwarp" and c == 3:
+            fs = field(shape[:3], d_main, "smooth")
+            errs[name].append(_check(f"hwarp {shape} d={d_main} {mode} smooth field", hwarp(x, fs, d_main, mode), hwarp_plain(x, fs, d_main, mode)))
+            _say(f"  hwarp {shape} on the smooth field: {_time_ms(lambda: hwarp(x, fs, d_main, mode)):.4f} ms "
+                 f"(random field: {row['ms']:.4f} ms)")
+            del fs
         del x, f, fc, zero, u, v, grid
     for row in per_shape:
         _bound(row, hbm)
         _say(f"  kernel {json.dumps(row)}")
-        # A kernel's first row is its largest main-path shape; its error is
-        # the largest over all its shapes.
+        # A kernel's first row is its largest main-path shape (for vwarp on
+        # the main path's kind of field); its error is the largest over all
+        # its shapes.
         first = rows.setdefault(row["kernel"], dict(row))
         first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"])
-    return rows, per_shape
+    return rows, per_shape, floor_ms
 
 
-def device_time_line(per_shape, device_ms) -> None:
+def device_time_line(per_shape, device_ms, floor_ms) -> None:
     """For each kernel, the sum over its shapes of launches x ms (timed alone,
     inputs as the timing loop leaves them in the caches) beside the device
-    time the profiler gave its device functions in one run of the main path."""
+    time the profiler gave its device functions in one run of the main path.
+    An event-timed call carries the gaps around a launch, which the profiler's
+    kernel durations do not: the same sum with the launch floor taken off
+    every call is printed too, and the profiler's time should lie between."""
     if device_ms is None:
         _say("kernel device time: not measured (the profiler recorded no device time)")
         return
@@ -271,6 +316,8 @@ def device_time_line(per_shape, device_ms) -> None:
     for name, key in _DEVICE_NAMES.items():
         out[name] = {
             "sum_launches_x_ms": sum(r["launches"] * r["ms"] for r in per_shape if r["kernel"] == name),
+            "sum_launches_x_ms_less_floor": sum(
+                r["launches"] * (r["ms"] - floor_ms) for r in per_shape if r["kernel"] == name),
             "profiler_ms": sum(ms for k, (ms, _) in device_ms.items() if key in k),
             "profiler_launches": sum(n for k, (_, n) in device_ms.items() if key in k),
         }
@@ -444,9 +491,9 @@ def main() -> int:
     _say(f"kernel build: {_build.build_all():.1f} s ({', '.join(_build.SOURCES)})")
     launches, d_main, device_ms = main_path()
     t0 = time.perf_counter()
-    rows, per_shape = kernel_phase(hbm, d_main, launches)
+    rows, per_shape, floor_ms = kernel_phase(hbm, d_main, launches)
     _say(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    device_time_line(per_shape, device_ms)
+    device_time_line(per_shape, device_ms, floor_ms)
     small_clip_check()
     schur_check()
 

@@ -95,6 +95,76 @@ def test_bilinear_warp_matches_plain_with_clipped_flow(cuda, dtype, flow_dtype):
     )
 
 
+def _edge_flow(g, n, h, w):
+    """Flow beyond the +-8 clip everywhere in +-12, and in each corner block
+    pointing off both of that corner's edges."""
+    flow = torch.rand((n, h, w, 2), generator=g) * 24 - 12
+    k = 6
+    flow[:, :k, :k] = -7.5
+    flow[:, :k, -k:, 0], flow[:, :k, -k:, 1] = 7.5, -7.5
+    flow[:, -k:, :k, 0], flow[:, -k:, :k, 1] = -7.5, 7.5
+    flow[:, -k:, -k:] = 7.5
+    return flow
+
+
+# The vector kernel: bf16 with 4, 12 and 16 vectors a pixel (C = 32, 96, 128,
+# compiled counts) and 3 (C = 24, the runtime count), f32 with 1 and 2 (C = 4,
+# 8, the runtime count); the element kernel: C = 3 and C = 20 (bf16: not a
+# multiple of 8). Widths whose rows fill a block's 128 positions many times
+# over (320) and not once (20, 47 at C = 4).
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [20, 47, 320])
+@pytest.mark.parametrize(
+    "dtype,c",
+    [(torch.bfloat16, 32), (torch.bfloat16, 96), (torch.bfloat16, 128), (torch.bfloat16, 24),
+     (torch.float32, 4), (torch.float32, 8), (torch.float32, 3), (torch.bfloat16, 3),
+     (torch.bfloat16, 20)],
+)
+def test_bilinear_warp_paths_match_plain(cuda, dtype, c, w, flow_dtype):
+    g = torch.Generator().manual_seed(c + w)
+    img = torch.randn((3, 19, w, c), generator=g).to(cuda, dtype)
+    flow = _edge_flow(g, 3, 19, w).to(cuda, flow_dtype)
+    torch.testing.assert_close(
+        bilinear_warp(img, flow, 8).float(),
+        bilinear_warp_plain(img, flow.clamp(-8, 8)).float(), **_tol(dtype),
+    )
+
+
+@pytest.mark.parametrize("dtype,c,skip", [(torch.bfloat16, 32, 1), (torch.bfloat16, 64, 4), (torch.float32, 8, 1)])
+def test_bilinear_warp_takes_unaligned_views(cuda, dtype, c, skip):
+    """A contiguous view that starts mid-storage, off any 16-byte boundary:
+    the dispatch reads the addresses, so the element kernel serves it."""
+    g = torch.Generator().manual_seed(11)
+    flat = torch.randn((skip + 2 * 17 * 24 * c,), generator=g).to(cuda, dtype)
+    img = flat[skip:].view(2, 17, 24, c)
+    assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    flow = _edge_flow(g, 2, 17, 24).to(cuda, dtype)
+    torch.testing.assert_close(
+        bilinear_warp(img, flow, 8).float(),
+        bilinear_warp_plain(img, flow.clamp(-8, 8)).float(), **_tol(dtype),
+    )
+    # an aligned image with a flow that starts between two (u, v) pairs
+    flat_flow = torch.cat([flow.reshape(-1)[:1], flow.reshape(-1)])
+    flow1 = flat_flow[1:].view(flow.shape)
+    assert flow1.data_ptr() % (2 * flow1.element_size()) != 0
+    img0 = img.clone()
+    torch.testing.assert_close(
+        bilinear_warp(img0, flow1, 8).float(),
+        bilinear_warp_plain(img0, flow1.clamp(-8, 8)).float(), **_tol(dtype),
+    )
+
+
+def test_bilinear_warp_main_path_shape_matches_plain(cuda):
+    """The largest shape the flow network gives the kernel at 720p."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    img = torch.randn((8, 192, 320, 32), generator=g, device=cuda).bfloat16()
+    flow = (torch.rand((8, 192, 320, 2), generator=g, device=cuda) * 24 - 12).bfloat16()
+    torch.testing.assert_close(
+        bilinear_warp(img, flow, 8).float(),
+        bilinear_warp_plain(img, flow.clamp(-8, 8)).float(), **_tol(torch.bfloat16),
+    )
+
+
 @pytest.mark.parametrize("mode", ["edge", "wrap"])
 @pytest.mark.parametrize("c,max_disp", [(3, 16), (1, 63), (3, 127)])
 def test_1d_warps_match_plain(cuda, mode, c, max_disp):
@@ -117,6 +187,69 @@ def test_hwarp_rows_match_plain(cuda, w, c, max_disp, mode):
     field = (torch.rand((2, 5, w), generator=g) * 2.4 - 1.2).mul(max_disp).to(cuda)
     torch.testing.assert_close(
         hwarp(img, field, max_disp, mode), hwarp_plain(img, field, max_disp, mode), rtol=0, atol=1e-5
+    )
+
+
+def _field(g, kind, n, h, w, max_disp):
+    """A per-pixel random field in +-1.2 max_disp, or a smooth one: a 3x4 grid
+    of such values a frame, upsampled to the frame."""
+    if kind == "random":
+        return (torch.rand((n, h, w), generator=g) * 2.4 - 1.2).mul(max_disp)
+    coarse = (torch.rand((n, 1, 3, 4), generator=g) * 2.4 - 1.2).mul(max_disp)
+    return torch.nn.functional.interpolate(
+        coarse, size=(h, w), mode="bilinear", align_corners=False
+    )[:, 0].contiguous()
+
+
+# vwarp's row kernel: one, three and any other number of channels, rows
+# shorter than a block's piece (53) and longer (1314, 1536), both fields, and
+# in wrap mode both index fixes (max_disp 16 < H = 23 <= 127).
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+@pytest.mark.parametrize("max_disp", [16, 127])
+@pytest.mark.parametrize("w", [53, 1314, 1536])
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_vwarp_rows_match_plain(cuda, c, w, max_disp, mode, kind):
+    g = torch.Generator().manual_seed(w + c)
+    img = torch.rand((2, 23, w, c), generator=g).to(cuda)
+    field = _field(g, kind, 2, 23, w, max_disp).to(cuda)
+    torch.testing.assert_close(
+        vwarp(img, field, max_disp, mode), vwarp_plain(img, field, max_disp, mode), rtol=0, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+def test_vwarp_main_path_height_with_the_cheap_wrap(cuda, mode):
+    """H = 720 > max_disp = 127: taps leave the frame at both ends and come
+    back with one add or subtract."""
+    g = torch.Generator().manual_seed(6)
+    img = torch.rand((2, 720, 40, 3), generator=g).to(cuda)
+    field = _field(g, "smooth", 2, 720, 40, 127).to(cuda)
+    torch.testing.assert_close(
+        vwarp(img, field, 127, mode), vwarp_plain(img, field, 127, mode), rtol=0, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_vwarp_takes_unaligned_views(cuda, c):
+    g = torch.Generator().manual_seed(c)
+    flat = torch.rand((3 + 4 * 7 * 40 * c,), generator=g).to(cuda)
+    img = flat[3:].view(4, 7, 40, c)  # starts 12 bytes into its storage
+    field = (torch.rand((1 + 4 * 7 * 40,), generator=g) * 30 - 15).to(cuda)[1:].view(4, 7, 40)
+    for mode in ("edge", "wrap"):
+        torch.testing.assert_close(
+            vwarp(img, field, 16, mode), vwarp_plain(img, field, 16, mode), rtol=0, atol=1e-5
+        )
+
+
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+def test_vwarp_frames_taller_than_the_grid(cuda, mode):
+    """H beyond the 65535 rows a launch grid holds: the per-element kernel."""
+    g = torch.Generator().manual_seed(8)
+    img = torch.rand((1, 65600, 6, 3), generator=g).to(cuda)
+    field = (torch.rand((1, 65600, 6), generator=g) * 300 - 150).to(cuda)
+    torch.testing.assert_close(
+        vwarp(img, field, 127, mode), vwarp_plain(img, field, 127, mode), rtol=0, atol=1e-5
     )
 
 

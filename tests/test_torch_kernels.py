@@ -81,6 +81,27 @@ def test_bilinear_warp_plain_matches_xla(shape):
     _close(bilinear_warp_plain(torch.from_numpy(img), torch.from_numpy(flow)), want)
 
 
+# Channel counts at which the card's kernel takes its two paths (96: twelve
+# 16-byte vectors a pixel; 20: not a multiple of 8, the per-element kernel),
+# with flow beyond the +-8 clip and, in the corners, off both edges at once:
+# the oracle the kernel is held to there is itself held to the reference here.
+@pytest.mark.parametrize("shape", [(2, 19, 24, 96), (2, 19, 47, 20), (1, 24, 40, 128)])
+def test_bilinear_warp_plain_matches_xla_off_every_edge(shape):
+    rng = np.random.default_rng(5)
+    n, h, w, _ = shape
+    img = _rand(rng, shape)
+    flow = _rand(rng, (n, h, w, 2), -12.0, 12.0)
+    k = 6
+    flow[:, :k, :k] = -7.5
+    flow[:, :k, -k:] = (7.5, -7.5)
+    flow[:, -k:, :k] = (-7.5, 7.5)
+    flow[:, -k:, -k:] = 7.5
+    clipped = np.clip(flow, -8.0, 8.0)  # what the card's kernel warps by
+    for fl in (flow, clipped):
+        want = bilinear_warp_xla(jnp.asarray(img), jnp.asarray(fl))
+        _close(bilinear_warp_plain(torch.from_numpy(img), torch.from_numpy(fl)), want)
+
+
 def test_warp_validity_matches_reference():
     rng = np.random.default_rng(2)
     flow = _rand(rng, (2, 33, 47, 2), -6.0, 6.0)
@@ -105,6 +126,35 @@ def test_1d_warps_plain_match_xla(mode, shape, max_disp):
     _close(hwarp(ti, tf, max_disp, mode), hwarp_xla(ji, jf, max_disp, mode))
     _close(vwarp_plain(ti, tf, max_disp, mode), vwarp_xla(ji, jf, max_disp, mode))
     _close(hwarp_plain(ti, tf, max_disp, mode), hwarp_xla(ji, jf, max_disp, mode))
+
+
+def _smooth_field(rng, n, h, w, amp):
+    """A 3x4 grid of values in +-amp a frame, upsampled bilinearly to the
+    frame: the kind of field the render gives the vertical pass."""
+    coarse = _rand(rng, (n, 3, 4), -amp, amp)
+    ys = np.clip((np.arange(h) + 0.5) * 3 / h - 0.5, 0, 2)
+    xs = np.clip((np.arange(w) + 0.5) * 4 / w - 0.5, 0, 3)
+    y0, x0 = np.minimum(ys.astype(int), 1), np.minimum(xs.astype(int), 2)
+    fy, fx = (ys - y0)[None, :, None], (xs - x0)[None, None, :]
+    c = lambda dy, dx: coarse[:, y0 + dy][:, :, x0 + dx]
+    out = (1 - fy) * ((1 - fx) * c(0, 0) + fx * c(0, 1)) + fy * ((1 - fx) * c(1, 0) + fx * c(1, 1))
+    return out.astype(np.float32)
+
+
+# vwarp on a smooth field, where the card's kernel coalesces: in wrap mode
+# with max_disp below the height (one add or subtract fixes a row index on
+# the card) and at or beyond it (taps wrap more than once: floored modulo).
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+@pytest.mark.parametrize(
+    "shape,max_disp", [((2, 23, 53, 3), 16), ((2, 23, 53, 3), 127), ((2, 7, 40, 1), 16), ((1, 9, 31, 2), 63)]
+)
+def test_vwarp_plain_matches_xla_on_smooth_fields(mode, shape, max_disp):
+    rng = np.random.default_rng(6)
+    img = _rand(rng, shape)
+    field = _smooth_field(rng, *shape[:3], 1.2 * max_disp)
+    want = vwarp_xla(jnp.asarray(img), jnp.asarray(field), max_disp, mode)
+    _close(vwarp_plain(torch.from_numpy(img), torch.from_numpy(field), max_disp, mode), want)
+    _close(vwarp(torch.from_numpy(img), torch.from_numpy(field), max_disp, mode), want)
 
 
 def _smooth_flow(rng, n, h, w, amp, offset):

@@ -11,8 +11,29 @@
 // Bound on the H100: bytes (frame read, field read, out written; 2 taps and
 // 3 flops per element).
 //
-// vwarp: one thread per output element, a direct 2-tap gather; the taps of
-// neighbouring threads sit in the same two rows, so a warp's reads coalesce.
+// vwarp moves data only along a column, so nothing of a row can be staged:
+// a row of output taps up to 2d+2 source rows, and the reuse between
+// neighbouring output rows is the L2's (a 720x1536x3 frame is 13 MB of its
+// 50). What the kernel saves is arithmetic and latency:
+//   - the frame comes from blockIdx.z and the row from blockIdx.y, so no
+//     index is recovered by division and the three 64-bit bases (frame, field
+//     row, output row) are computed once a thread; every offset inside a
+//     frame is 32-bit;
+//   - a thread owns floats of the row, not pixels: float i belongs to pixel
+//     i / C (a multiply for the compiled C = 1 and 3) and reads v[i / C],
+//     which its channel neighbours share through the L1; both tap loads and
+//     the store are 4-byte accesses that a warp makes as 128 contiguous bytes
+//     wherever its pixels share their tap rows, as they do on the smooth
+//     fields of the render;
+//   - a block walks over several chunks of its row, 4 floats a thread a
+//     chunk: the 8 tap loads of a chunk are started together, and the next
+//     chunk's field values are loaded before this chunk's taps are used, so
+//     the two dependent device-memory latencies (field, then taps) overlap.
+// In wrap mode the row index is fixed with one conditional add or subtract
+// when max_disp <= H - 1 (decided on the host) and with the floored modulo
+// otherwise. Frames of 2^31 bytes or more, and H or N beyond the launch
+// grid's 65535, go to vwarp_element_kernel, one thread per output element
+// with a 64-bit flat index.
 //
 // hwarp moves data only along a row, so a block owns one image row (n, y):
 //   1. the row's W*C floats go to shared memory once, with 16-byte cp.async
@@ -45,10 +66,12 @@
 
 namespace {
 
-__global__ void vwarp_kernel(const float* __restrict__ img,
-                             const float* __restrict__ v,
-                             float* __restrict__ out, int64_t total, int h,
-                             int w, int c, float max_disp, int mode) {
+// Generic path of vwarp: frames of 2^31 bytes or more, H or N beyond the grid.
+__global__ void vwarp_element_kernel(const float* __restrict__ img,
+                                     const float* __restrict__ v,
+                                     float* __restrict__ out, int64_t total,
+                                     int h, int w, int c, float max_disp,
+                                     int mode) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int64_t p = i / c;
@@ -68,6 +91,78 @@ __global__ void vwarp_kernel(const float* __restrict__ img,
   const float a = col[(int64_t)ya * w * c];
   const float b = col[(int64_t)yb * w * c];
   out[i] = (1.f - fy) * a + fy * b;
+}
+
+constexpr int VW_THREADS = 256;
+constexpr int VW_PER = 4;    // floats of a chunk a thread computes
+constexpr int VW_CHUNKS = 4; // chunks of a row a block aims to walk over
+
+// Row index fix of vwarp_row_kernel. FIX 0 clamps to the edge; FIX 1 wraps a
+// row index known to lie in [-n, 2n) with one conditional add or subtract
+// (the host picks it when max_disp <= n - 1); FIX 2 is the floored modulo,
+// right for any index.
+template <int FIX>
+__device__ __forceinline__ int fix_row(int i, int n) {
+  if (FIX == 0) return vstab::clamp_i(i, 0, n - 1);
+  if (FIX == 1) return i < 0 ? i + n : (i >= n ? i - n : i);
+  return vstab::fix_index(i, n, 1);
+}
+
+// The field values of one chunk's VW_PER floats of a thread. Positions past
+// the row's end read the last pixel's.
+template <int C>
+__device__ __forceinline__ void load_field(const float* __restrict__ vr, int at, int wc,
+                                           unsigned c, float* f) {
+#pragma unroll
+  for (int k = 0; k < VW_PER; ++k)
+    f[k] = __ldg(vr + (unsigned)min(at + k * VW_THREADS, wc - 1) / (C ? C : c));
+}
+
+// gridDim.x blocks share one output row (blockIdx.y) of one frame
+// (blockIdx.z); each walks over the row's chunks of VW_THREADS * VW_PER
+// floats in steps of gridDim.x. C is the channel count, or 0 for "read it
+// from c_any".
+template <int C, int FIX>
+__global__ void __launch_bounds__(VW_THREADS)
+vwarp_row_kernel(const float* __restrict__ img, const float* __restrict__ v,
+                 float* __restrict__ out, int h, int w, int c_any,
+                 float max_disp) {
+  constexpr int CHUNK = VW_THREADS * VW_PER;
+  const unsigned c = C ? C : c_any;
+  const int wc = w * (int)c;
+  const int y = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.z * h;  // first row of the frame
+  const float* src = img + row0 * wc;
+  const float* vr = v + (row0 + y) * w;
+  float* dst = out + (row0 + y) * wc;
+  const int stride = gridDim.x * CHUNK;
+
+  float f[VW_PER], f_next[VW_PER];
+  int i0 = blockIdx.x * CHUNK + threadIdx.x;
+  load_field<C>(vr, i0, wc, c, f);
+  for (; i0 - (int)threadIdx.x < wc; i0 += stride) {
+    // The next chunk's field is on its way while this chunk's taps are.
+    load_field<C>(vr, i0 + stride, wc, c, f_next);
+    // Both taps of all VW_PER floats are started before the first is used.
+    // Positions past the row's end read its last float and store nothing.
+    float a[VW_PER], b[VW_PER], fy[VW_PER];
+#pragma unroll
+    for (int k = 0; k < VW_PER; ++k) {
+      const int at = min(i0 + k * VW_THREADS, wc - 1);
+      const float sy = (float)y + vstab::clamp_f(f[k], max_disp);
+      const float y0f = floorf(sy);
+      fy[k] = sy - y0f;
+      const int y0 = (int)y0f;
+      a[k] = __ldg(src + fix_row<FIX>(y0, h) * wc + at);
+      b[k] = __ldg(src + fix_row<FIX>(y0 + 1, h) * wc + at);
+    }
+#pragma unroll
+    for (int k = 0; k < VW_PER; ++k) {
+      const int i = i0 + k * VW_THREADS;
+      if (i < wc) dst[i] = (1.f - fy[k]) * a[k] + fy[k] * b[k];
+      f[k] = f_next[k];
+    }
+  }
 }
 
 // Generic path of hwarp: rows too long for shared memory.
@@ -185,13 +280,39 @@ int launch_hwarp_rows(const float* img, const float* u, float* out, int64_t rows
   return vstab::launch_status();
 }
 
+template <int C, int FIX>
+int launch_vwarp_rows(const float* img, const float* v, float* out, int n, int h,
+                      int w, int c, float max_disp, cudaStream_t stream) {
+  const int chunks = (w * c + VW_THREADS * VW_PER - 1) / (VW_THREADS * VW_PER);
+  const dim3 grid((unsigned)((chunks + VW_CHUNKS - 1) / VW_CHUNKS), (unsigned)h, (unsigned)n);
+  vwarp_row_kernel<C, FIX><<<grid, VW_THREADS, 0, stream>>>(img, v, out, h, w, c, max_disp);
+  return vstab::launch_status();
+}
+
+template <int FIX>
+int launch_vwarp_fix(const float* img, const float* v, float* out, int n, int h,
+                     int w, int c, float max_disp, cudaStream_t stream) {
+  if (c == 1) return launch_vwarp_rows<1, FIX>(img, v, out, n, h, w, c, max_disp, stream);
+  if (c == 3) return launch_vwarp_rows<3, FIX>(img, v, out, n, h, w, c, max_disp, stream);
+  return launch_vwarp_rows<0, FIX>(img, v, out, n, h, w, c, max_disp, stream);
+}
+
+// The row kernel wherever a frame's offsets fit 32 bits and H and N fit the
+// grid, the per-element kernel otherwise. In wrap mode the cheap index fix
+// serves max_disp <= H - 1 (taps then lie in [-H, 2H)), the floored modulo
+// the rest.
 int launch_vwarp(const float* img, const float* v, float* out, int n, int h,
                  int w, int c, float max_disp, int mode, cudaStream_t stream) {
-  const int64_t total = (int64_t)n * h * w * c;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  vwarp_kernel<<<(unsigned)blocks, threads, 0, stream>>>(img, v, out, total, h, w, c, max_disp, mode);
-  return vstab::launch_status();
+  if ((int64_t)h * w * c * 4 > 0x7fffffffLL || h > 65535 || n > 65535) {
+    const int64_t total = (int64_t)n * h * w * c;
+    const int threads = 256;
+    const int64_t blocks = (total + threads - 1) / threads;
+    vwarp_element_kernel<<<(unsigned)blocks, threads, 0, stream>>>(img, v, out, total, h, w, c, max_disp, mode);
+    return vstab::launch_status();
+  }
+  if (mode == 0) return launch_vwarp_fix<0>(img, v, out, n, h, w, c, max_disp, stream);
+  if (max_disp <= (float)(h - 1)) return launch_vwarp_fix<1>(img, v, out, n, h, w, c, max_disp, stream);
+  return launch_vwarp_fix<2>(img, v, out, n, h, w, c, max_disp, stream);
 }
 
 // The row kernel wherever its one or two staged rows fit in shared memory,

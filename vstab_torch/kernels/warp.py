@@ -6,9 +6,15 @@ tensors, which clips the flow to +-max_disp as the TPU kernel does, and runs
 path calls `bilinear_warp_xla` unclipped (`vstab/kernels/warp.py:376-378`).
 
 Replaces `vstab/kernels/warp.py:bilinear_warp_pallas`. Bound on the H100:
-bytes (image and flow read once, output written once). Design: one thread
-per output element, a direct 4-tap gather with clamped indices (see the
-source's header).
+bytes (image and flow read once, output written once). Design (see the
+source's header): a thread owns one 16-byte vector of a pixel's channels (8
+bf16 or 4 f32), computes the pixel's taps and weights once, reads the four
+taps as 16-byte loads and writes one 16-byte vector; frame, row and position
+come from the launch grid, no index is divided out. That kernel serves channel
+counts that are a multiple of the vector length on 16-byte aligned tensors;
+any other call (C = 3, a view that starts mid-storage) goes to the kernel
+with one thread per output element. Which one runs is decided in the C entry
+point from the shape and the addresses.
 
 Convention: output[n,y,x] samples input at (x + flow[...,0], y + flow[...,1]);
 out-of-bounds taps clamp to the border.

@@ -5,13 +5,17 @@ tensors and run `vwarp_plain` / `hwarp_plain` for CPU tensors.
 
 Replace `vstab/kernels/warp1d.py:vwarp_pallas` and `hwarp_pallas`. Bound on
 the H100: bytes (frame and field read once, output written once). Design
-(see the source's header): `vwarp` is one thread per output element, a direct
-2-tap gather; `hwarp` gives each image row to one block, which copies the row
-into shared memory with 16-byte `cp.async` copies, gathers both taps of every
-pixel there (one thread per pixel, all channels) and writes the row back in
-16-byte stores, so device traffic is the bound itself. Rows that do not start
-on a 16-byte boundary move their first and last floats in 4-byte copies; rows
-too long for shared memory take a per-element kernel.
+(see the source's header): `vwarp` gives each output row to a few blocks that
+walk over it in chunks, a thread per float, frame and row taken from the
+launch grid; a warp's two tap loads and its store are 128 contiguous bytes
+wherever its pixels share their tap rows, and the next chunk's field values
+are loaded while this chunk's taps are in flight. Frames of 2 GB or more take
+a per-element kernel. `hwarp` gives each image row to one block, which copies
+the row into shared memory with 16-byte `cp.async` copies, gathers both taps
+of every pixel there (one thread per pixel, all channels) and writes the row
+back in 16-byte stores, so device traffic is the bound itself. Rows that do
+not start on a 16-byte boundary move their first and last floats in 4-byte
+copies; rows too long for shared memory take a per-element kernel.
 
 A general smooth warp factorizes (see `vstab/kernels/warp1d.py`) into
   1. a per-frame integer mean shift (roll),
