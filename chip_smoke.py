@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
-and the repository's `ckpts/`. In order it:
+and the repository's `ckpts/`. It does the following (step 4 runs after
+step 11, once every path has shown its shapes and buckets):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
    CUDA versions; exits non-zero when torch sees no CUDA device;
@@ -32,7 +33,31 @@ and the repository's `ckpts/`. In order it:
    card's output agrees with the CPU run of the plain versions (which the
    CPU tests hold against the JAX package);
 6. checks the Schur branch of the smoothing solve (T=128) against the
-   banded solve on the card.
+   banded solve on the card;
+7. affine: `stabilize` with `smooth.method="affine"` on the same clip (finite,
+   right shape, all four kernels launched, the bucket printed), and the small
+   clip's card-against-CPU check for that method;
+8. batch: `stabilize_batch` on the clip and its time reverse, each output
+   against `stabilize` on that clip with the batch's bucket;
+9. blocked, 720p: the clip played forward then backward (95 frames, quantized
+   to uint8 levels) through `stabilize_blocked` with `block_len=32`, from
+   float32 and from uint8 frames, both against `stabilize` on the card (same
+   `max_disp`, 99.9% of the pixels within 2e-3), with the stats, frames/s,
+   peak device memory of the blocked and the whole-clip run and the profiler's
+   device idle share of a blocked run;
+10. blocked, 1080p: a 33-frame 1920x1080 clip with `block_len=16` the same
+   way: the kernels' first run at the 1080p pyramid shapes (1080 rows padded
+   to 1088) and the 1920-wide render. Step 4 holds every kernel against its
+   plain version at the shapes of steps 9 and 10 too. Then the peak device
+   memory of one 64-frame 1080p uint8 render dispatch;
+11. file to file, where the machine has OpenCV (`cv2`; read once at the start
+   and printed): writes a short 720p file and runs `python -m vstab_torch
+   stabilize ... --blocked --block-len 16` as a subprocess, then checks its
+   record and the output's frame count. Without `cv2` it says that this step
+   was not run.
+
+Every path of steps 3 and 7 to 10 is driven with the launch counters zeroed
+just before and read just after, and must have launched all four kernels.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -42,10 +67,15 @@ and the script then exits non-zero without that line.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import logging
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,12 +92,20 @@ _HBM_RATE = (
 _F32_RATE = 67e12  # H100 SXM f32 outside the tensor cores, flop/s
 _BF16_RATE = 989e12  # H100 SXM dense bf16 on the tensor cores, flop/s
 
-# Shapes the main path gives the cost volume: 8 frame pairs a chunk, the
-# pyramid levels estimated for a 720-row clip padded to 768, finest first.
-_CV_SHAPES = ((8, 192, 320, 32), (8, 96, 160, 64), (8, 48, 80, 96), (8, 24, 40, 128), (8, 12, 20, 196))
+_MAIN = "whole_720p"  # the path whose launches the `kernels` line reports
+_LEVEL_CHANNELS = (32, 64, 96, 128, 196)  # pyramid levels 2..6 of the default Config
+
+
+def _level_shapes(h: int, w: int, pairs: int = 8):
+    """Shapes the flow network gives the cost volume for frames of h x w: a
+    chunk of `pairs` frame pairs, the frame padded to a multiple of 64, the
+    pyramid levels it estimates at (1/4 to 1/64), finest first. The feature
+    warp runs at every level but the coarsest."""
+    hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
+    return tuple((pairs, hp >> l, wp >> l, c) for l, c in zip(range(2, 7), _LEVEL_CHANNELS))
+
+
 _CV_F32_SHAPE = (8, 48, 80, 96)  # compute_dtype="float32" at the middle level
-# Shapes it gives the feature warp: every level but the coarsest.
-_WARP_SHAPES = _CV_SHAPES[:4]
 # Substring of each kernel's device functions in the profiler's names.
 _DEVICE_NAMES = {
     "cost_volume": "cost_volume_", "bilinear_warp": "bilinear_warp_",
@@ -82,14 +120,6 @@ _TOL = {torch.bfloat16: (2.0**-7, 1e-5), torch.float32: (0.0, 1e-5)}
 
 def _say(*parts) -> None:
     print(*parts, flush=True)
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
 
 
 def _hbm_rate(name: str) -> float:
@@ -151,11 +181,13 @@ def _bound(row: dict, hbm: float) -> None:
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_phase(hbm: float, d_main: int, launches: dict):
-    """Checks and times every kernel; returns (rows, per_shape, floor_ms):
-    the one row per kernel of the `{"kernels": ...}` line, timed at the
-    kernel's largest main-path shape, every (kernel, shape) row with its
-    launches a run, and the time this timing gives a near-empty launch."""
+def kernel_phase(hbm: float, paths: dict):
+    """Checks and times every kernel at the shapes of every path in `paths`
+    (name -> {"hw", "n" frames a render dispatch, "d" the bucket, "launches"
+    of one run}); returns (rows, per_shape, floor_ms): the one row per kernel
+    of the `{"kernels": ...}` line, timed at the kernel's largest shape on the
+    whole-clip path, every (kernel, shape, path) row with its launches a run,
+    and the time this timing gives a near-empty launch."""
     from vstab_torch.kernels import (
         bilinear_warp, bilinear_warp_plain, cost_volume, cost_volume_plain,
         hwarp, hwarp_plain, vwarp, vwarp_plain,
@@ -163,60 +195,71 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
 
     g = torch.Generator(device="cuda").manual_seed(0)
     per_shape, rows = [], {}
-
-    # -- cost volume, r=4: bf16 at the five levels of a 720p chunk (tensor
-    # cores; useful operations 2*81*C a pixel) and one f32 shape (CUDA cores).
-    # The forward pass launches it once a level for every chunk of pairs.
-    if launches["cost_volume"] % len(_CV_SHAPES):
-        raise AssertionError(f"cost_volume launches {launches['cost_volume']} are not a multiple of the levels")
-    per_level = launches["cost_volume"] // len(_CV_SHAPES)
     tiny = torch.zeros((1, 2, 8, 8), device="cuda", dtype=torch.bfloat16)
     floor_ms = _time_ms(lambda: cost_volume(tiny, tiny, 4))
     _say(f"  launch floor: {floor_ms:.4f} ms "
          "(cost_volume on 1x2x8x8 bf16, timed like every kernel: no kernel's time can be below it)")
-    for shape, dtype in [(s, torch.bfloat16) for s in _CV_SHAPES] + [(_CV_F32_SHAPE, torch.float32)]:
-        f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        n, h, w, c = shape
-        size = f1.element_size()
-        bf16 = dtype == torch.bfloat16
-        row = dict(
-            kernel="cost_volume", shape=list(shape) + [str(dtype).split(".")[1], "r=4"],
-            launches=per_level if bf16 else 0,
-            max_abs_err=_check(f"cost_volume {shape} {dtype}", cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4)),
-            ms=_time_ms(lambda: cost_volume(f1, f2, 4)),
-            plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, 4), iters=5),
-            bytes=(2 * f1.numel() + n * h * w * 81) * size, flops=n * h * w * 81 * c * 2,
-            rate=_BF16_RATE if bf16 else _F32_RATE, library_ms=None,
-        )
-        per_shape.append(row)
-        del f1, f2
+
+    def per_level(path, kernel, levels):
+        n = paths[path]["launches"][kernel]
+        if n % levels:
+            raise AssertionError(f"{path}: {kernel} launches {n} are not a multiple of the {levels} levels")
+        return n // levels
+
+    # -- cost volume, r=4: bf16 at the five levels of a chunk of 8 pairs
+    # (tensor cores; useful operations 2*81*C a pixel) and, for the whole-clip
+    # path, one f32 shape (CUDA cores). The forward pass launches it once a
+    # level for every chunk of pairs.
+    def cv_rows(path, f32_too):
+        shapes = _level_shapes(*paths[path]["hw"])
+        count = per_level(path, "cost_volume", len(shapes))
+        cases = [(s, torch.bfloat16) for s in shapes] + ([(_CV_F32_SHAPE, torch.float32)] if f32_too else [])
+        for shape, dtype in cases:
+            f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            n, h, w, c = shape
+            size = f1.element_size()
+            bf16 = dtype == torch.bfloat16
+            per_shape.append(dict(
+                kernel="cost_volume", path=path, shape=list(shape) + [str(dtype).split(".")[1], "r=4"],
+                launches=count if bf16 else 0,
+                max_abs_err=_check(f"cost_volume {shape} {dtype}", cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4)),
+                ms=_time_ms(lambda: cost_volume(f1, f2, 4)),
+                plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, 4), iters=5),
+                bytes=(2 * f1.numel() + n * h * w * 81) * size, flops=n * h * w * 81 * c * 2,
+                rate=_BF16_RATE if bf16 else _F32_RATE, library_ms=None,
+            ))
+            del f1, f2
 
     # -- feature warp: the forward pass warps f2 at every level but the
     # coarsest, once a level for every chunk of pairs, so its launches are
     # four shapes the same number of times each. bf16 image and flow, the
     # flow up to +-12 px so that the kernel's +-8 clip matters; the plain
     # version gets the clipped flow. All four go to the vector kernel.
-    if launches["bilinear_warp"] % len(_WARP_SHAPES):
-        raise AssertionError(f"bilinear_warp launches {launches['bilinear_warp']} are not a multiple of the levels")
-    for shape in _WARP_SHAPES:
-        n, h, w, c = shape
-        img = torch.randn(shape, generator=g, device="cuda").bfloat16()
-        flow = (torch.rand((n, h, w, 2), generator=g, device="cuda") * 24 - 12).bfloat16()
-        clipped = flow.clamp(-8, 8)
-        img_nchw = img.permute(0, 3, 1, 2)
-        grid = _grid(h, w, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
-        per_shape.append(dict(
-            kernel="bilinear_warp", shape=list(shape) + ["bfloat16", "bfloat16 flow to +-12"],
-            launches=launches["bilinear_warp"] // len(_WARP_SHAPES),
-            max_abs_err=_check(f"bilinear_warp {shape}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped)),
-            ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
-            plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
-            bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
-            library_ms=_time_ms(lambda: F.grid_sample(
-                img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-        ))
-        del img, flow, clipped, img_nchw, grid
+    def warp_rows(path):
+        shapes = _level_shapes(*paths[path]["hw"])[:4]
+        count = per_level(path, "bilinear_warp", len(shapes))
+        for shape in shapes:
+            n, h, w, c = shape
+            img = torch.randn(shape, generator=g, device="cuda").bfloat16()
+            flow = (torch.rand((n, h, w, 2), generator=g, device="cuda") * 24 - 12).bfloat16()
+            clipped = flow.clamp(-8, 8)
+            img_nchw = img.permute(0, 3, 1, 2)
+            grid = _grid(h, w, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
+            per_shape.append(dict(
+                kernel="bilinear_warp", path=path, shape=list(shape) + ["bfloat16", "bfloat16 flow to +-12"],
+                launches=count,
+                max_abs_err=_check(f"bilinear_warp {shape}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped)),
+                ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
+                plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
+                bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
+                library_ms=_time_ms(lambda: F.grid_sample(
+                    img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+            ))
+            del img, flow, clipped, img_nchw, grid
+
+    cv_rows(_MAIN, f32_too=True)
+    warp_rows(_MAIN)
     # Checked, not timed: the vector kernel in f32 (C=8: two vectors a pixel,
     # the runtime count) and the element kernel (C=3).
     for shape, dtype in (((2, 48, 80, 8), torch.float32), ((2, 48, 80, 3), torch.bfloat16)):
@@ -225,85 +268,107 @@ def kernel_phase(hbm: float, d_main: int, launches: dict):
         err = _check(f"bilinear_warp {shape} {dtype}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, flow.clamp(-8, 8)))
         per_shape[-1]["max_abs_err"] = max(per_shape[-1]["max_abs_err"], err)
 
-    # -- 1D render warps, f32, at the padded render width 1280 + 2(d+1): the
-    # buckets 16, 63 and 127 and the main path's bucket d_main, with 3 channels
-    # (the frame) and 1 (the fields that hwarp resamples). At d=16 the rows of
-    # 1314 floats do not start 16-byte aligned, so hwarp's 4-byte head and
-    # tail copies run. The rows are timed at d_main: vwarp and hwarp run once
-    # a render on the frame, hwarp the other times on a field. Two kinds of
-    # field: "random" draws every pixel in +-1.2 d, so neighbouring pixels tap
-    # unrelated rows; "smooth" is what the main path gives the warps, a 12x16
-    # grid of vertices a frame (drawn in +-d) upsampled to the frame as
+    # -- 1D render warps, f32, at the padded render width W + 2(d+1). Two
+    # kinds of field: "random" draws every pixel in +-1.2 d, so neighbouring
+    # pixels tap unrelated rows; "smooth" is what the pipeline gives the warps,
+    # a 12x16 grid of vertices a frame (drawn in +-d) upsampled to the frame as
     # grid_to_flow upsamples the solved path. hwarp stages its row whole and
     # takes the same time on both; vwarp gathers from device memory, so its
-    # main-path row is the smooth one and the random one launches 0 times.
+    # pipeline row is the smooth one and the random one launches 0 times.
     def field(shape, d, kind="random"):
         if kind == "random":
             return (torch.rand(shape, generator=g, device="cuda") * 2.4 * d - 1.2 * d).contiguous()
         coarse = (torch.rand((shape[0], 1, 12, 16), generator=g, device="cuda") * 2 - 1) * d
         return F.interpolate(coarse, size=shape[1:], mode="bilinear", align_corners=False)[:, 0].contiguous()
 
-    def width(d):
-        return 1280 + 2 * (d + 1)
+    # A render dispatch of n frames launches vwarp and hwarp once on the
+    # frame, hwarp the other times on a field: four rows a path (the random
+    # vwarp row only on the whole-clip path), each checked in both modes on
+    # the field it is timed on.
+    def render_rows(path):
+        n, (h, w), d = paths[path]["n"], paths[path]["hw"], paths[path]["d"]
+        launches = paths[path]["launches"]
+        errs = {"vwarp": [], "hwarp": []}
+        if path == _MAIN:
+            # The buckets 16, 63 and 127 and the path's own, with 3 channels
+            # (the frame) and 1 (the fields that hwarp resamples). At d=16 the
+            # rows of 1314 floats do not start 16-byte aligned, so hwarp's
+            # 4-byte head and tail copies run.
+            for dd, c in sorted({(dd, c) for dd in (16, 63, 127, d) for c in (1, 3)}):
+                shape = (n, h, w + 2 * (dd + 1), c)
+                x = torch.rand(shape, generator=g, device="cuda")
+                f = field(shape[:3], dd)
+                for mode in ("edge", "wrap"):
+                    errs["vwarp"].append(_check(f"vwarp {shape} d={dd} {mode}", vwarp(x, f, dd, mode), vwarp_plain(x, f, dd, mode)))
+                    errs["hwarp"].append(_check(f"hwarp {shape} d={dd} {mode}", hwarp(x, f, dd, mode), hwarp_plain(x, f, dd, mode)))
+                del x, f
+        if launches["hwarp"] % launches["vwarp"]:
+            raise AssertionError(f"{path}: hwarp launches {launches['hwarp']} are no multiple of vwarp's {launches['vwarp']}")
+        cases = [
+            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", launches["vwarp"]),
+            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
+            ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", launches["vwarp"]),
+            ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", launches["hwarp"] - launches["vwarp"]),
+        ]
+        for name, kern, plain, mode, c, kind, count in cases:
+            if kind == "random" and name == "vwarp" and path != _MAIN:
+                continue
+            shape = (n, h, w + 2 * (d + 1), c)
+            x = torch.rand(shape, generator=g, device="cuda")
+            f = field(shape[:3], d, kind)
+            if kind == "smooth" or path != _MAIN:
+                for m in ("edge", "wrap"):
+                    errs[name].append(_check(f"{name} {shape} d={d} {m} {kind} field", kern(x, f, d, m), plain(x, f, d, m)))
+            fc = f.clamp(-d, d)
+            zero = torch.zeros_like(fc)
+            u, v = (zero, fc) if name == "vwarp" else (fc, zero)
+            x_nchw = x.permute(0, 3, 1, 2)
+            grid = _grid(*shape[1:3], u, v, torch.float32)
+            row = dict(
+                kernel=name, path=path, shape=list(shape) + [f"d={d} {mode}"], field=kind, launches=count,
+                max_abs_err=max(errs[name]),
+                ms=_time_ms(lambda: kern(x, f, d, mode)),
+                plain_ms=_time_ms(lambda: plain(x, f, d, mode), iters=5),
+                bytes=4 * (2 * x.numel() + f.numel()), flops=None,
+                # border padding: grid_sample has no wrap mode
+                library_ms=_time_ms(lambda: F.grid_sample(
+                    x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+            )
+            per_shape.append(row)
+            if path == _MAIN and name == "hwarp" and c == 3:
+                fs = field(shape[:3], d, "smooth")
+                errs[name].append(_check(f"hwarp {shape} d={d} {mode} smooth field", hwarp(x, fs, d, mode), hwarp_plain(x, fs, d, mode)))
+                _say(f"  hwarp {shape} on the smooth field: {_time_ms(lambda: hwarp(x, fs, d, mode)):.4f} ms "
+                     f"(random field: {row['ms']:.4f} ms)")
+                del fs
+            del x, f, fc, zero, u, v, grid
 
-    cases = {(d, c) for d in (16, 63, 127, d_main) for c in (1, 3)}
-    errs = {"vwarp": [], "hwarp": []}
-    for d, c in sorted(cases):
-        shape = (48, 720, width(d), c)
-        x = torch.rand(shape, generator=g, device="cuda")
-        f = field(shape[:3], d)
-        for mode in ("edge", "wrap"):
-            errs["vwarp"].append(_check(f"vwarp {shape} d={d} {mode}", vwarp(x, f, d, mode), vwarp_plain(x, f, d, mode)))
-            errs["hwarp"].append(_check(f"hwarp {shape} d={d} {mode}", hwarp(x, f, d, mode), hwarp_plain(x, f, d, mode)))
-        del x, f
-    for name, kern, plain, mode, c, kind, count in (
-        ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", launches["vwarp"]),
-        ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
-        ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", 1),
-        ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", launches["hwarp"] - 1),
-    ):
-        shape = (48, 720, width(d_main), c)
-        x = torch.rand(shape, generator=g, device="cuda")
-        f = field(shape[:3], d_main, kind)
-        if kind == "smooth":
-            for m in ("edge", "wrap"):
-                errs[name].append(_check(f"{name} {shape} d={d_main} {m} smooth field", kern(x, f, d_main, m), plain(x, f, d_main, m)))
-        fc = f.clamp(-d_main, d_main)
-        zero = torch.zeros_like(fc)
-        u, v = (zero, fc) if name == "vwarp" else (fc, zero)
-        x_nchw = x.permute(0, 3, 1, 2)
-        grid = _grid(*shape[1:3], u, v, torch.float32)
-        row = dict(
-            kernel=name, shape=list(shape) + [f"d={d_main} {mode}"], field=kind, launches=count,
-            max_abs_err=max(errs[name]),
-            ms=_time_ms(lambda: kern(x, f, d_main, mode)),
-            plain_ms=_time_ms(lambda: plain(x, f, d_main, mode), iters=5),
-            bytes=4 * (2 * x.numel() + f.numel()), flops=None,
-            # border padding: grid_sample has no wrap mode
-            library_ms=_time_ms(lambda: F.grid_sample(
-                x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-        )
-        per_shape.append(row)
-        if name == "hwarp" and c == 3:
-            fs = field(shape[:3], d_main, "smooth")
-            errs[name].append(_check(f"hwarp {shape} d={d_main} {mode} smooth field", hwarp(x, fs, d_main, mode), hwarp_plain(x, fs, d_main, mode)))
-            _say(f"  hwarp {shape} on the smooth field: {_time_ms(lambda: hwarp(x, fs, d_main, mode)):.4f} ms "
-                 f"(random field: {row['ms']:.4f} ms)")
-            del fs
-        del x, f, fc, zero, u, v, grid
+    render_rows(_MAIN)
+    # The other paths: flow shapes that the whole-clip path has not shown
+    # (another frame size), and their render dispatches (block length, width
+    # and bucket of their own).
+    seen_hw = {paths[_MAIN]["hw"]}
+    for path in paths:
+        if path == _MAIN:
+            continue
+        if paths[path]["hw"] not in seen_hw:
+            seen_hw.add(paths[path]["hw"])
+            cv_rows(path, f32_too=False)
+            warp_rows(path)
+        render_rows(path)
     for row in per_shape:
         _bound(row, hbm)
         _say(f"  kernel {json.dumps(row)}")
-        # A kernel's first row is its largest main-path shape (for vwarp on
-        # the main path's kind of field); its error is the largest over all
-        # its shapes.
+        # A kernel's first row is its largest shape on the whole-clip path
+        # (for vwarp on the pipeline's kind of field); its error is the
+        # largest over all its shapes on every path.
         first = rows.setdefault(row["kernel"], dict(row))
         first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"])
     return rows, per_shape, floor_ms
 
 
 def device_time_line(per_shape, device_ms, floor_ms) -> None:
-    """For each kernel, the sum over its shapes of launches x ms (timed alone,
+    """For each kernel, the sum over its whole-clip shapes of launches x ms (timed alone,
     inputs as the timing loop leaves them in the caches) beside the device
     time the profiler gave its device functions in one run of the main path.
     An event-timed call carries the gaps around a launch, which the profiler's
@@ -314,10 +379,10 @@ def device_time_line(per_shape, device_ms, floor_ms) -> None:
         return
     out = {}
     for name, key in _DEVICE_NAMES.items():
+        mine = [r for r in per_shape if r["kernel"] == name and r["path"] == _MAIN]
         out[name] = {
-            "sum_launches_x_ms": sum(r["launches"] * r["ms"] for r in per_shape if r["kernel"] == name),
-            "sum_launches_x_ms_less_floor": sum(
-                r["launches"] * (r["ms"] - floor_ms) for r in per_shape if r["kernel"] == name),
+            "sum_launches_x_ms": sum(r["launches"] * r["ms"] for r in mine),
+            "sum_launches_x_ms_less_floor": sum(r["launches"] * (r["ms"] - floor_ms) for r in mine),
             "profiler_ms": sum(ms for k, (ms, _) in device_ms.items() if key in k),
             "profiler_launches": sum(n for k, (_, n) in device_ms.items() if key in k),
         }
@@ -326,14 +391,57 @@ def device_time_line(per_shape, device_ms, floor_ms) -> None:
     _say("kernel device time per run: " + json.dumps(out))
 
 
-def main_path():
-    import vstab_torch
-    from vstab_torch.eval.synthetic import make_shaky_clip
+def _run_counted(name: str, run):
+    """Drives one path with every launch counter zeroed just before and read
+    just after; every kernel must have launched. Returns (result, launches,
+    seconds)."""
     from vstab_torch.kernels import KERNELS, reset_launches
-    from vstab_torch.pipeline import _params_match, clip_flow, smooth_paths
-    from vstab_torch.render.render import (
-        grid_to_flow, pick_max_disp, render_stabilized, residual_disp_bound,
-    )
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    _say(f"{name}: first run {dt:.2f} s, launches {json.dumps(launches)}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the path {name}: {missing}")
+    return out, launches, dt
+
+
+def _check_frames(name: str, out, shape) -> None:
+    out = torch.as_tensor(out)
+    finite = bool(torch.isfinite(out).all())
+    if tuple(out.shape) != tuple(shape) or not finite:
+        raise AssertionError(f"{name}: bad output: shape {tuple(out.shape)}, finite {finite}")
+
+
+def _bucket(diags: dict, h: int, w: int, cfg) -> tuple:
+    """(residual bound, bucket) that `stabilize` derived from its solved path."""
+    from vstab_torch.render.render import pick_max_disp, residual_disp_bound
+
+    path = diags["warps"] if cfg.smooth.method == "affine" else diags["profiles"] - diags["smoothed"]
+    bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
+    return bound, pick_max_disp(bound, cfg.render)
+
+
+def _close(name: str, got, want, tol: float = 2e-3, share: float = 0.999) -> None:
+    """At least `share` of the values within `tol`: the rest sit where the
+    0.999 validity threshold or a bilinear tap flips."""
+    err = (torch.as_tensor(got).cuda() - torch.as_tensor(want).cuda()).abs()
+    within = float((err <= tol).float().mean())
+    _say(f"  {name}: max_abs_err {float(err.max()):.3e}, {within:.5f} of values within {tol:g}")
+    if within < share:
+        raise AssertionError(f"{name}: outputs disagree")
+
+
+def main_path(card: str):
+    import vstab_torch
+    from vstab_torch import bench
+    from vstab_torch.eval.synthetic import make_shaky_clip
+    from vstab_torch.pipeline import _params_match
 
     cfg = vstab_torch.Config()  # default: bf16 flow, sparse_ls, adaptive bound
     t0 = time.perf_counter()
@@ -348,53 +456,198 @@ def main_path():
     frames = torch.from_numpy(frames_np).cuda()
     _say(f"clip: {tuple(frames.shape)} synthesized in {time.perf_counter() - t0:.1f} s")
 
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, diags = vstab_torch.stabilize(frames, params, cfg)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in KERNELS.items()}
-    _say(f"main path: first run {first_s:.2f} s, launches {json.dumps(launches)}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    if tuple(out.shape) != (48, 720, 1280, 3) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    (out, _), launches, _ = _run_counted("main path", lambda: vstab_torch.stabilize(frames, params, cfg))
+    _check_frames("main path", out, (48, 720, 1280, 3))
     valid = float((out != 0).any(dim=-1).float().mean())
     _say(f"output: {tuple(out.shape)} finite, non-border pixels {valid:.4f}")
     del out
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, _ = vstab_torch.stabilize(frames, params, cfg)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    del out
-
-    h, w = 720, 1280
-    stage = {}
-    t0 = time.perf_counter()
-    flow = clip_flow(params, frames, cfg)
-    torch.cuda.synchronize()
-    stage["flow_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    path, _ = smooth_paths(flow, cfg, (h, w))
-    bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
-    d = pick_max_disp(bound, cfg.render)
-    torch.cuda.synchronize()
-    stage["smooth_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        render_stabilized(frames, grid_to_flow(path, h, w), cfg.render, max_disp=d)
-    torch.cuda.synchronize()
-    stage["render_ms"] = (time.perf_counter() - t0) * 1e3
-    _say("main path: " + json.dumps({
-        "frames_per_s": 48 / dt, "run_s": dt, **stage, "residual_bound_px": bound, "max_disp": d,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }))
+    res = bench.measure(frames, params, cfg, iters=3, stages=True)
+    _say("main path: " + json.dumps({**res, "card": card}))
     device_ms = profile(lambda: vstab_torch.stabilize(frames, params, cfg))
-    return launches, d, device_ms
+    path = {"hw": (720, 1280), "n": 48, "d": res["max_disp"], "launches": launches}
+    return path, device_ms, frames_np, frames, params
+
+
+def affine_phase(frames: torch.Tensor, params: dict, card: str) -> None:
+    """`stabilize` with the global-affine smoothing on the main clip, and the
+    small clip's card-against-CPU check for that method."""
+    import vstab_torch
+    from vstab_torch import bench
+
+    base = vstab_torch.Config()
+    cfg = dataclasses.replace(base, smooth=dataclasses.replace(base.smooth, method="affine"))
+    t, h, w, _ = frames.shape
+    (out, diags), launches, _ = _run_counted("affine", lambda: vstab_torch.stabilize(frames, params, cfg))
+    _check_frames("affine", out, frames.shape)
+    bound, d = _bucket(diags, h, w, cfg)
+    _, dt = bench.timed(lambda: vstab_torch.stabilize(frames, params, cfg))
+    _say("affine: " + json.dumps({
+        "frames_per_s": t / dt, "run_s": dt, "residual_bound_px": bound, "max_disp": d,
+        "non_border_pixels": float((out != 0).any(dim=-1).float().mean()), "card": card,
+    }))
+    small_clip_check("affine")
+
+
+def batch_phase(frames: torch.Tensor, params: dict, card: str) -> None:
+    """`stabilize_batch` on the clip and its time reverse: each clip's output
+    against `stabilize` on that clip with the batch's bucket."""
+    import vstab_torch
+    from vstab_torch.render.render import pick_max_disp
+
+    cfg = vstab_torch.Config()
+    t, h, w, _ = frames.shape
+    batch = torch.stack([frames, frames.flip(0)])
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, dt = _run_counted("batch", lambda: vstab_torch.stabilize_batch(batch, params, cfg))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_frames("batch", out, batch.shape)
+    bounds = [_bucket(vstab_torch.stabilize(clip, params, cfg)[1], h, w, cfg)[0] for clip in batch]
+    d = pick_max_disp(max(bounds), cfg.render)
+    static = dataclasses.replace(
+        cfg, render=dataclasses.replace(cfg.render, adaptive_max_disp=False, max_residual_disp=d))
+    for i, clip in enumerate(batch):
+        _close(f"batch clip {i} vs stabilize at the batch's bucket {d}",
+               out[i], vstab_torch.stabilize(clip, params, static)[0])
+    _say("batch: " + json.dumps({
+        "clips": 2, "frames_per_s": 2 * t / dt, "run_s": dt, "residual_bounds_px": bounds,
+        "max_disp": d, "peak_mem_gb": peak, "card": card,
+    }))
+
+
+class _StatsCatcher(logging.Handler):
+    """Keeps the stats dict that the blocked pipeline logs at the end of a run."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.stats = None
+
+    def emit(self, record):
+        if str(record.msg).startswith("blocked stabilize:"):
+            self.stats = record.args if isinstance(record.args, dict) else record.args[0]
+
+
+def _blocked_run(frames, params, cfg, block_len):
+    import vstab_torch
+
+    catcher = _StatsCatcher()
+    log = logging.getLogger("vstab_torch.blocked")
+    level = log.level
+    log.addHandler(catcher)
+    log.setLevel(logging.INFO)
+    try:
+        out = vstab_torch.stabilize_blocked(frames, params, cfg, block_len=block_len)
+    finally:
+        log.removeHandler(catcher)
+        log.setLevel(level)
+    if catcher.stats is None:
+        raise AssertionError("the blocked run logged no stats")
+    return out, catcher.stats
+
+
+def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card: str) -> dict:
+    """`stabilize_blocked` on host frames [T,H,W,3] uint8, once as float32
+    (u8 / 255) and once as uint8, against `stabilize` on the float32 clip on
+    the card: the same `max_disp`, 99.9% of the values within 2e-3. bf16 flow
+    and cuDNN's choice of algorithm are the same in both (chunks of 8 pairs at
+    one frame size); what differs is the grouping of pairs into chunks."""
+    import vstab_torch
+
+    cfg = vstab_torch.Config()
+    t, h, w, _ = u8.shape
+    f32 = u8.astype(np.float32) * np.float32(1.0 / 255.0)  # the device's arithmetic
+    dev_frames = torch.from_numpy(f32).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vstab_torch.stabilize(dev_frames, params, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, diags = vstab_torch.stabilize(dev_frames, params, cfg)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_peak = torch.cuda.max_memory_allocated() / 1e9
+    bound, d = _bucket(diags, h, w, cfg)
+    want = want.cpu()
+    del dev_frames, diags
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    (got, stats), launches, _ = _run_counted(
+        f"{name} float32", lambda: _blocked_run(f32, params, cfg, block_len))
+    blocked_peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_frames(name, got, (t, h, w, 3))
+    if stats["max_disp"] != d:
+        raise AssertionError(f"{name}: blocked max_disp {stats['max_disp']} != whole-clip {d}")
+    _close(f"{name} float32 vs whole clip", got, want)
+    _, stats_f32 = _blocked_run(f32, params, cfg, block_len)  # warm: pinned buffers are cached now
+    (got8, stats_u8), launches_u8, _ = _run_counted(
+        f"{name} uint8", lambda: _blocked_run(u8, params, cfg, block_len))
+    if stats_u8["max_disp"] != d:
+        raise AssertionError(f"{name}: uint8 max_disp {stats_u8['max_disp']} != whole-clip {d}")
+    _close(f"{name} uint8 vs whole clip", got8, want)
+    del got, got8, want
+    _say(f"{name}: " + json.dumps({
+        "frames": t, "hw": [h, w], "block_len": block_len, "residual_bound_px": bound, "max_disp": d,
+        "whole_clip": {"frames_per_s": t / whole_s, "run_s": whole_s, "peak_mem_gb": whole_peak},
+        "blocked_first_run_float32": stats, "blocked_float32": stats_f32, "blocked_uint8": stats_u8,
+        "blocked_peak_mem_gb": blocked_peak, "card": card,
+    }))
+    _say(f"{name}: profile of one more blocked float32 run ({card})")
+    profile(lambda: vstab_torch.stabilize_blocked(f32, params, cfg, block_len=block_len))
+    return {"hw": (h, w), "n": min(block_len, t), "d": d, "launches": launches}
+
+
+def render_memory_probe(card: str) -> None:
+    """Peak device memory of one 64-frame 1080p uint8 render dispatch of the
+    blocked pipeline at the bucket 127: what `_RENDER_PX_FRAMES_BUDGET` lets
+    through at 1080p."""
+    import vstab_torch
+    from vstab_torch.pipeline_blocked import _block_render
+
+    cfg = vstab_torch.Config()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randint(0, 256, (64, 1080, 1920, 3), generator=g, device="cuda", dtype=torch.uint8)
+    path = (torch.rand((64, 12, 16, 2), generator=g, device="cuda") * 2 - 1) * 60.0
+    scale = torch.tensor(cfg.render.fixed_crop_ratio, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = _block_render(frames, path, scale, cfg, max_disp=127, to_uint8=True)
+    torch.cuda.synchronize()
+    _check_frames("render probe", out.float(), (64, 1080, 1920, 3))
+    _say("render dispatch 64x1080x1920 uint8, d=127: " + json.dumps({
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "inputs_gb": base / 1e9, "card": card}))
+
+
+def file_phase(u8: np.ndarray, have_cv2: bool, card: str) -> None:
+    """File to file through the command line, where OpenCV is installed."""
+    if not have_cv2:
+        _say("file to file: not run, this machine has no cv2 (OpenCV)")
+        return
+    from vstab_torch.io.video import probe_video, write_video
+
+    tmp = tempfile.mkdtemp(prefix="vstab_smoke_")
+    try:
+        src, dst = os.path.join(tmp, "in.mp4"), os.path.join(tmp, "out.mp4")
+        write_video(src, u8, fps=30.0)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "vstab_torch", "stabilize", src, dst, "--blocked", "--block-len", "16"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        if r.returncode != 0:
+            raise AssertionError(f"the command line failed ({r.returncode}):\n{r.stderr[-3000:]}")
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        n_out, _, hw = probe_video(dst)
+        _say("file to file: " + json.dumps({
+            **rec, "subprocess_s": time.perf_counter() - t0, "output_frames": n_out, "card": card}))
+        if rec["frames"] != u8.shape[0] or n_out != u8.shape[0] or hw != tuple(u8.shape[1:3]):
+            raise AssertionError(f"file to file: {rec['frames']} / {n_out} frames of {hw}, wanted {u8.shape}")
+        if rec["block_len"] != 16 or "motion block 1/" not in r.stderr or os.path.exists(dst + ".resume"):
+            raise AssertionError("file to file: not the blocked path, or its resume directory was left")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile(run):
@@ -441,20 +694,22 @@ def profile(run):
     return by_name
 
 
-def small_clip_check():
+def small_clip_check(method: str = "sparse_ls"):
     """The card's output vs the CPU run of the plain versions, f32 flow."""
     import vstab_torch
     from vstab_torch.eval.synthetic import make_shaky_clip
 
     base = vstab_torch.Config()
-    cfg = dataclasses.replace(base, flow=dataclasses.replace(base.flow, compute_dtype="float32"))
+    cfg = dataclasses.replace(
+        base, flow=dataclasses.replace(base.flow, compute_dtype="float32"),
+        smooth=dataclasses.replace(base.smooth, method=method))
     frames, _ = make_shaky_clip(t=9, h=64, w=96, seed=0)
     params = vstab_torch.default_params(cfg, ckpt_dir="ckpts", device="cpu")
     want, _ = vstab_torch.stabilize(frames, params, cfg, device="cpu")
     got, _ = vstab_torch.stabilize(frames, params, cfg)
     err = (got.cpu() - want).abs()
     share = float((err <= 1e-3).float().mean())
-    _say(f"small clip (9x64x96, f32): card vs CPU plain max_abs_err {float(err.max()):.3e}, "
+    _say(f"small clip (9x64x96, f32, {method}): card vs CPU plain max_abs_err {float(err.max()):.3e}, "
          f"{share:.5f} of pixels within 1e-3")
     if share < 0.999:
         raise AssertionError("card output disagrees with the CPU plain path")
@@ -480,18 +735,46 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    card = _card()
+    from vstab_torch.bench import card as card_line
+
+    card = card_line()
     _say(card)
     _say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     name = torch.cuda.get_device_name(0)
     hbm = _hbm_rate(name)
 
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    _say(f"cv2 (OpenCV) installed: {have_cv2}")
+
+    from vstab_torch.eval.synthetic import make_shaky_clip
     from vstab_torch.kernels import _build
 
     _say(f"kernel build: {_build.build_all():.1f} s ({', '.join(_build.SOURCES)})")
-    launches, d_main, device_ms = main_path()
+    paths = {}
+    paths[_MAIN], device_ms, frames_np, frames, params = main_path(card)
+    affine_phase(frames, params, card)
+    batch_phase(frames, params, card)
+    del frames
+    torch.cuda.empty_cache()
+
+    # 95 frames of 720p without another synthesis: the clip played forward,
+    # then backward (the motion stays continuous), at uint8 levels.
+    u8 = np.clip(np.concatenate([frames_np, frames_np[-2::-1]]) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    del frames_np
+    paths["blocked_720p"] = blocked_phase("blocked 720p", u8, params, 32, card)
     t0 = time.perf_counter()
-    rows, per_shape, floor_ms = kernel_phase(hbm, d_main, launches)
+    hd, _ = make_shaky_clip(t=17, h=1080, w=1920, seed=1)
+    hd8 = np.clip(np.concatenate([hd, hd[-2::-1]]) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    del hd
+    _say(f"clip: {hd8.shape} (17 frames forward, then backward) synthesized in {time.perf_counter() - t0:.1f} s")
+    paths["blocked_1080p"] = blocked_phase("blocked 1080p", hd8, params, 16, card)
+    del hd8
+    render_memory_probe(card)
+    file_phase(u8[:33], have_cv2, card)
+    del u8
+
+    t0 = time.perf_counter()
+    rows, per_shape, floor_ms = kernel_phase(hbm, paths)
     _say(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     device_time_line(per_shape, device_ms, floor_ms)
     small_clip_check()
@@ -506,7 +789,9 @@ def main() -> int:
     kernels = [
         {
             "name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
-            "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": paths[_MAIN]["launches"][k],
+            "launches_by_path": {name: p["launches"][k] for name, p in paths.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }

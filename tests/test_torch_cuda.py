@@ -296,3 +296,48 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         hwarp(x, x[..., 0].cpu())
     with pytest.raises(ValueError):
         vwarp(x, x[..., 0], mode="reflect")
+
+
+# The blocked pipeline's pinned staging buffers, asynchronous uploads and
+# second-stream fetches exist only on the card. Blocked against whole clip,
+# both on the card, tiny random network in f32: 2e-3 on every value, as on
+# the CPU.
+@pytest.mark.parametrize("method", ["sparse_ls", "affine"])
+@pytest.mark.parametrize("as_uint8", [False, True])
+def test_blocked_matches_whole_clip_on_the_card(cuda, method, as_uint8):
+    import numpy as np
+
+    import vstab_torch
+    from vstab_torch.core import config as tcfg
+    from vstab_torch.eval.synthetic import make_shaky_clip
+
+    cfg = tcfg.Config(
+        flow=tcfg.FlowConfig(
+            pyramid_channels=(8, 12, 16), estimator_channels=(16, 12),
+            compute_dtype="float32", output_level=1,
+        ),
+        smooth=tcfg.SmoothConfig(method=method),
+        render=tcfg.RenderConfig(crop_mode="auto"),
+    )
+    params = vstab_torch.default_params(cfg, seed=0, ckpt_dir="/nonexistent")
+    frames, _ = make_shaky_clip(t=21, h=48, w=64, seed=5)
+    u8 = (np.clip(frames, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    f32 = u8.astype(np.float32) * np.float32(1.0 / 255.0)
+    want, _ = vstab_torch.stabilize(f32, params, cfg)
+    reset_launches()
+    got = vstab_torch.stabilize_blocked(u8 if as_uint8 else f32, params, cfg, block_len=8)
+    assert all(k.launches > 0 for k in KERNELS.values())
+    assert got.dtype == np.float32 and got.shape == f32.shape
+    torch.testing.assert_close(torch.from_numpy(got), want.cpu(), rtol=0, atol=2e-3)
+
+
+def test_roll_and_wrap_pad_on_the_card(cuda):
+    from vstab_torch.kernels.warp1d import _roll_and_wrap_pad
+
+    g = torch.Generator().manual_seed(3)
+    frames = torch.randn((5, 12, 17, 3), generator=g)
+    mu = torch.tensor([-20.0, 3.0, 0.0, 16.0, 40.0])
+    mv = torch.tensor([5.0, -13.0, 0.0, 11.0, -30.0])
+    want = _roll_and_wrap_pad(frames, mu, mv, 4)
+    got = _roll_and_wrap_pad(frames.to(cuda), mu.to(cuda), mv.to(cuda), 4)
+    assert torch.equal(got.cpu(), want)

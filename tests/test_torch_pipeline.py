@@ -115,3 +115,104 @@ def test_synthetic_clip_matches_reference_numpy_path(monkeypatch):
     got, cams = make_shaky_clip(t=4, h=40, w=56, seed=2)
     np.testing.assert_array_equal(cams, cams_r)
     np.testing.assert_array_equal(got, want)
+
+
+def _cfg_method(mod, method, **render):
+    return mod.Config(
+        flow=mod.FlowConfig(kernel_impl="xla", compute_dtype="float32"),
+        smooth=mod.SmoothConfig(method=method),
+        render=mod.RenderConfig(kernel_impl="xla", **render),
+    )
+
+
+# Affine path, flow_086000 in f32. The diagnostics (trajectory of up to tens
+# of pixels) within 2e-5 on the linear part and 5e-3 px on the translation;
+# the same render bucket; output within 1e-3 on at least 99.9% of the pixels.
+def test_stabilize_affine_matches_reference():
+    frames, _ = make_shaky_clip(t=9, h=64, w=96, seed=0)
+    want, diags_r = stabilize_ref(
+        jnp.asarray(frames), load_params_ref(os.path.join(CKPTS, "flow_086000.msgpack")),
+        _cfg_method(jcfg, "affine"),
+    )
+    cfg = _cfg_method(tcfg, "affine")
+    params = default_params(cfg, ckpt_dir=CKPTS, device="cpu")
+    got, diags_p = vstab_torch.stabilize(frames, params, cfg, device="cpu")
+    assert got.shape == (9, 64, 96, 3) and torch.isfinite(got).all()
+    assert set(diags_p) == set(diags_r) == {"warps", "path", "smoothed"}
+    for k in diags_p:
+        a, b = diags_p[k].numpy(), np.asarray(diags_r[k])
+        np.testing.assert_allclose(a[..., :2], b[..., :2], rtol=0, atol=2e-5, err_msg=k)
+        np.testing.assert_allclose(a[..., 2], b[..., 2], rtol=0, atol=5e-3, err_msg=k)
+    assert pick_max_disp(
+        residual_disp_bound(diags_p["warps"].numpy(), 64, 96, "affine"), tcfg.RenderConfig()
+    ) == pick_ref(bound_ref(np.asarray(diags_r["warps"]), 64, 96, "affine"), jcfg.RenderConfig())
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert (err <= 1e-3).mean() >= 0.999, (err.max(), (err > 1e-3).mean())
+    clip = vstab_torch.stabilize_clip(
+        vstab_torch.core.types.Clip.from_array(torch.from_numpy(frames), fps=24.0), params, cfg, device="cpu")
+    assert clip.fps == 24.0 and torch.equal(clip.frames, got)
+
+
+_TINY = dict(
+    pyramid_channels=(8, 12, 16), estimator_channels=(16, 12), output_level=1,
+)
+
+
+def _tiny_cfg(mod, method, adaptive=True):
+    return mod.Config(
+        flow=mod.FlowConfig(kernel_impl="xla", compute_dtype="float32", **_TINY),
+        smooth=mod.SmoothConfig(method=method, grid_size=(4, 4)),
+        render=mod.RenderConfig(kernel_impl="xla", crop_mode="auto", adaptive_max_disp=adaptive),
+    )
+
+
+# A tiny random network (flows of a few pixels): batch output within 1e-3 of
+# the reference's on 99.9% of the pixels, and within 1e-5 of per-clip
+# `stabilize` wherever that picks the batch's bucket.
+@pytest.mark.parametrize("method", ["sparse_ls", "affine"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_stabilize_batch_matches_reference_and_per_clip(method, adaptive):
+    from vstab.pipeline import stabilize_batch as batch_ref
+
+    jp = init_params(jax.random.PRNGKey(2), _tiny_cfg(jcfg, method).flow)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    a, _ = make_shaky_clip(t=7, h=48, w=64, seed=1)
+    frames = np.stack([a, a[::-1]])
+    want = np.asarray(batch_ref(jnp.asarray(frames), jp, _tiny_cfg(jcfg, method, adaptive)))
+    cfg = _tiny_cfg(tcfg, method, adaptive)
+    got = vstab_torch.stabilize_batch(frames, tp, cfg, device="cpu")
+    assert got.shape == (2, 7, 48, 64, 3) and torch.isfinite(got).all()
+    err = np.abs(got.numpy() - want)
+    assert (err <= 1e-3).mean() >= 0.999, (err.max(), (err > 1e-3).mean())
+    for i in range(2):
+        one, _ = vstab_torch.stabilize(frames[i], tp, cfg, device="cpu")
+        np.testing.assert_allclose(got[i].numpy(), one.numpy(), rtol=0, atol=1e-5)
+
+
+def test_stabilize_batch_takes_the_largest_bucket(monkeypatch):
+    """Two still clips, the second one's solved path pushed out by 40 px at
+    a vertex: the batch renders both with the second clip's bucket."""
+    from vstab_torch import pipeline as pl
+
+    cfg = _tiny_cfg(tcfg, "sparse_ls")
+    tp = default_params(cfg, ckpt_dir="/nonexistent", device="cpu", seed=0)
+    still = np.broadcast_to(make_shaky_clip(t=1, h=48, w=64, seed=3)[0], (6, 48, 64, 3))
+    seen, calls = [], []
+    real_render, real_paths = pl.render_stabilized, pl.smooth_paths
+
+    def paths(flow, c, hw):
+        path, diags = real_paths(flow, c, hw)
+        calls.append(1)
+        if len(calls) == 2:  # the second clip: 40 px more at one corner vertex
+            path = path.clone()
+            path[:, 0, 0, 0] += 40.0
+        return path, diags
+
+    def render(fr, fl, rc, scale=None, max_disp=None):
+        seen.append(max_disp)
+        return real_render(fr, fl, rc, scale=scale, max_disp=max_disp)
+
+    monkeypatch.setattr(pl, "smooth_paths", paths)
+    monkeypatch.setattr(pl, "render_stabilized", render)
+    vstab_torch.stabilize_batch(np.stack([still, still]), tp, cfg, device="cpu")
+    assert len(seen) == 2 and seen[0] == seen[1] and seen[0] > 16, seen

@@ -96,3 +96,68 @@ def test_render_stabilized_matches_reference(crop_mode, max_disp):
         torch.from_numpy(frames), flow_p, RenderConfig(crop_mode=crop_mode), max_disp=max_disp
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+def _warps(rng, t, shift=6.0, lin=0.01):
+    a = np.zeros((t, 2, 3), np.float32)
+    a[:, :, :2] = np.eye(2) + rng.normal(scale=lin, size=(t, 2, 2))
+    a[:, :, 2] = rng.normal(scale=shift, size=(t, 2))
+    return a
+
+
+# Flow values reach tens of pixels: 1e-5 relative, 1e-4 px absolute.
+def test_affine_to_flow_matches_reference():
+    warps = _warps(np.random.default_rng(4), 5)
+    want = ref.affine_to_flow(jnp.asarray(warps), 72, 100)
+    got = port.affine_to_flow(torch.from_numpy(warps), 72, 100)
+    assert got.shape == (5, 72, 100, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lin", [0.002, 0.02, 0.1])
+def test_affine_residual_disp_bound_equals_reference(lin):
+    warps = _warps(np.random.default_rng(5), 7, lin=lin)
+    for h, w in ((720, 1280), (1080, 1920), (64, 96)):
+        b_ref = ref.residual_disp_bound(warps, h, w, "affine")
+        b_port = port.residual_disp_bound(warps, h, w, "affine")
+        assert b_port == b_ref  # the same numpy arithmetic
+        assert port.pick_max_disp(b_port, RenderConfig()) == ref.pick_max_disp(b_ref, RenderRef())
+    assert port.residual_disp_bound(np.zeros((0, 2, 3), np.float32), 64, 96, "affine") == 0.0
+    # the bound covers the dense flow's mean-removed residual
+    flow = port.affine_to_flow(torch.from_numpy(warps), 64, 96)
+    res = (flow - flow.mean(dim=(1, 2), keepdim=True)).abs().max()
+    assert float(res) <= port.residual_disp_bound(warps, 64, 96, "affine") + 1e-3
+
+
+@pytest.mark.parametrize("crop_mode", ["fixed", "auto"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_render_scale_override_matches_reference(crop_mode, as_tensor):
+    rng = np.random.default_rng(6)
+    t, h, w = 3, 40, 56
+    frames = rng.random((t, h, w, 3)).astype(np.float32)
+    warps = _warps(rng, t, shift=3.0)
+    want = ref.render_stabilized(
+        jnp.asarray(frames), ref.affine_to_flow(jnp.asarray(warps), h, w),
+        RenderRef(crop_mode=crop_mode, kernel_impl="xla"), scale=jnp.float32(0.8), max_disp=24,
+    )
+    flow = port.affine_to_flow(torch.from_numpy(warps), h, w)
+    scale = torch.tensor(0.8) if as_tensor else 0.8
+    got = port.render_stabilized(
+        torch.from_numpy(frames), flow, RenderConfig(crop_mode=crop_mode), scale=scale, max_disp=24)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    plain = port.render_stabilized(torch.from_numpy(frames), flow, RenderConfig(crop_mode=crop_mode), max_disp=24)
+    assert not torch.equal(plain, got)  # the override is what zoomed
+
+
+def test_render_affine_and_render_grid_match_reference():
+    rng = np.random.default_rng(7)
+    t, h, w = 3, 40, 56
+    frames = rng.random((t, h, w, 3)).astype(np.float32)
+    warps = _warps(rng, t, shift=3.0)
+    want = ref.render_affine(jnp.asarray(frames), jnp.asarray(warps), RenderRef(kernel_impl="xla"))
+    got = port.render_affine(torch.from_numpy(frames), torch.from_numpy(warps), RenderConfig())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    path = _path(rng, t, 4, 6, 2.0)
+    want = ref.render_grid(jnp.asarray(frames), jnp.asarray(path), RenderRef(kernel_impl="xla"))
+    got = port.render_grid(torch.from_numpy(frames), torch.from_numpy(path), RenderConfig())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)

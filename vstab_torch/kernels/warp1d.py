@@ -130,6 +130,19 @@ def _mean_shift(flow: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.T
     return u, v, torch.round(u.mean(dim=(1, 2))), torch.round(v.mean(dim=(1, 2)))
 
 
+def _roll_and_wrap_pad(
+    frames: torch.Tensor, mu: torch.Tensor, mv: torch.Tensor, dpad: int
+) -> torch.Tensor:
+    """Frame i rolled by (-mv[i], -mu[i]) along (rows, columns), then
+    wrap-padded by dpad columns on both sides: [N,H,W,C] -> [N,H,W+2*dpad,C],
+    out[i, y, x] = frames[i, (y + mv[i]) % H, (x - dpad + mu[i]) % W]."""
+    n, h, w, _ = frames.shape
+    dev = frames.device
+    rows = (torch.arange(h, device=dev)[None] + mv.long()[:, None]) % h  # [N,H]
+    cols = (torch.arange(-dpad, w + dpad, device=dev)[None] % w + mu.long()[:, None]) % w
+    return frames[torch.arange(n, device=dev)[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
 def warp_twopass(
     frames: torch.Tensor,
     flow: torch.Tensor,
@@ -144,22 +157,19 @@ def warp_twopass(
         inv_iters = 2 if max_disp <= 63 else 3
     n, h, w, c = frames.shape
     u, v, mu, mv = _mean_shift(flow)
-    # F_m(q) = F(q + m): roll each frame by -m (see the reference for why
-    # wrap-mode taps in the vertical pass then recover the content).
-    shifts = torch.stack([mv, mu], dim=-1).to(torch.int64).tolist()
-    frames_m = torch.stack(
-        [torch.roll(f, shifts=(-sy, -sx), dims=(0, 1)) for f, (sy, sx) in zip(frames, shifts)]
-    )
     ur = u - mu[:, None, None]
     vr = v - mv[:, None, None]
 
-    # Extend the working domain horizontally by dpad columns: the image
-    # wrap-padded (true rolled content), the fields edge-extended.
+    # F_m(q) = F(q + m): each frame rolled by -m (see the reference for why
+    # wrap-mode taps in the vertical pass then recover the content), and the
+    # working domain extended horizontally by dpad columns: the image
+    # wrap-padded (true rolled content), the fields edge-extended. Roll and
+    # wrap-pad are one gather with indices computed on the device, so the
+    # host does not wait for the per-frame shifts.
     dpad = max_disp + 1
     ur_e = F.pad(ur, (dpad, dpad), mode="replicate")
     vr_e = F.pad(vr, (dpad, dpad), mode="replicate")
-    cols = torch.arange(-dpad, w + dpad, device=frames.device) % w
-    fm_e = frames_m.index_select(2, cols)
+    fm_e = _roll_and_wrap_pad(frames, mu, mv, dpad)
 
     def hw1(field, disp):  # horizontal warp of a single-channel field
         return hwarp(field[..., None].contiguous(), disp, max_disp=max_disp)[..., 0]

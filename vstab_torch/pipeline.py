@@ -1,8 +1,10 @@
-"""Whole-clip stabilization, the port of `vstab/pipeline.py` (sparse-LS path).
+"""Whole-clip stabilization, the port of `vstab/pipeline.py`.
 
-`stabilize(frames, params, cfg)` runs flow -> smoothing -> render. It runs
-on the CUDA device unless the caller passes `device="cpu"`; with no CUDA
-device it raises rather than falling back to the CPU. On CUDA the four
+`stabilize(frames, params, cfg)` runs flow -> smoothing (sparse-LS grid or
+global affine) -> render on one clip, `stabilize_batch` on a batch of clips
+with one render bucket for the batch. They run on the CUDA device unless the
+caller passes `device="cpu"`; with no CUDA device they raise rather than
+falling back to the CPU. On CUDA the four
 hand-written kernels carry the flow and render stages; on the CPU their
 plain torch versions do.
 
@@ -19,11 +21,19 @@ import torch
 from vstab_torch.core.config import Config, FlowConfig
 from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
+from vstab_torch.core.types import Clip
 from vstab_torch.render.render import (
+    affine_to_flow,
     grid_to_flow,
     pick_max_disp,
     render_stabilized,
     residual_disp_bound,
+)
+from vstab_torch.smooth.affine import (
+    chain_path,
+    fit_affine_from_flow,
+    smooth_path,
+    stabilizing_transforms,
 )
 from vstab_torch.utils.checkpoint import latest_checkpoint, load_params, params_from_jax
 
@@ -75,14 +85,27 @@ def clip_flow(
 
 @torch.inference_mode()
 def smooth_paths(flow: torch.Tensor, cfg: Config, hw: Tuple[int, int]):
-    """Flow -> (per-frame grid displacements [T,GH,GW,2], diagnostics)."""
+    """Flow -> (compact per-frame path, diagnostics): stabilizing affine
+    warps [T,2,3] or grid displacements [T,GH,GW,2]."""
+    if cfg.smooth.method == "affine":
+        path = chain_path(fit_affine_from_flow(flow))
+        sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
+        warps = stabilizing_transforms(path, sm)
+        return warps, {"warps": warps, "path": path.transforms, "smoothed": sm.transforms}
     if cfg.smooth.method == "sparse_ls":
         from vstab_torch.smooth.sparse_ls import smooth_grid_field
 
         return smooth_grid_field(flow, hw, cfg.smooth)
-    if cfg.smooth.method == "affine":
-        raise NotImplementedError("smooth.method='affine' is not ported to vstab_torch yet")
     raise ValueError(f"unknown smoothing method: {cfg.smooth.method}")
+
+
+@torch.inference_mode()
+def path_to_flow(path: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.Tensor:
+    """Per-frame path -> dense backward-warp flow [T,H,W,2]."""
+    h, w = hw
+    if cfg.smooth.method == "affine":
+        return affine_to_flow(path, h, w)
+    return grid_to_flow(path, h, w)
 
 
 @torch.inference_mode()
@@ -93,7 +116,7 @@ def smooth_and_render(
     pin_full_f32()
     t, h, w, _ = frames.shape
     path, diags = smooth_paths(flow, cfg, (h, w))
-    out = render_stabilized(frames, grid_to_flow(path, h, w), cfg.render)
+    out = render_stabilized(frames, path_to_flow(path, cfg, (h, w)), cfg.render)
     return out, diags
 
 
@@ -116,8 +139,45 @@ def stabilize(
     path, diags = smooth_paths(flow, cfg, (h, w))
     bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
     d = pick_max_disp(bound, cfg.render)
-    out = render_stabilized(frames, grid_to_flow(path, h, w), cfg.render, max_disp=d)
+    out = render_stabilized(frames, path_to_flow(path, cfg, (h, w)), cfg.render, max_disp=d)
     return out, diags
+
+
+def stabilize_clip(clip: Clip, params: Params, cfg: Config = Config(), device=None) -> Clip:
+    out, _ = stabilize(clip.frames, params, cfg, device=device)
+    return Clip(frames=out, fps=clip.fps)
+
+
+@torch.inference_mode()
+def stabilize_batch(
+    frames, params: Params, cfg: Config = Config(), device=None
+) -> torch.Tensor:
+    """Stabilize a batch of same-shape clips: [B,T,H,W,3] -> [B,T,H,W,3].
+
+    Flow and solve run clip by clip; with cfg.render.adaptive_max_disp the
+    render bucket is picked once, from the largest residual bound over the
+    batch, and every clip is rendered with it (otherwise with the static
+    cfg.render.max_residual_disp). The 'auto' crop scale stays per clip."""
+    dev = resolve_device(device)
+    pin_full_f32()
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    params = _on(params, dev)
+    b, t, h, w, _ = frames.shape
+    paths = torch.stack(
+        [smooth_paths(clip_flow(params, fr, cfg), cfg, (h, w))[0] for fr in frames]
+    )
+    max_disp = None
+    if cfg.render.adaptive_max_disp:
+        flat = paths.reshape((b * t,) + paths.shape[2:]).cpu().numpy()
+        max_disp = pick_max_disp(
+            residual_disp_bound(flat, h, w, cfg.smooth.method), cfg.render
+        )
+    out = torch.empty_like(frames)
+    for i in range(b):
+        out[i] = render_stabilized(
+            frames[i], path_to_flow(paths[i], cfg, (h, w)), cfg.render, max_disp=max_disp
+        )
+    return out
 
 
 def _params_match(params: Params, flow_cfg: FlowConfig) -> bool:
@@ -155,8 +215,11 @@ def default_params(
 __all__ = [
     "clip_flow",
     "default_params",
+    "path_to_flow",
     "resolve_device",
     "smooth_and_render",
     "smooth_paths",
     "stabilize",
+    "stabilize_batch",
+    "stabilize_clip",
 ]

@@ -1,5 +1,8 @@
-"""Full-frame stabilized renderer, the port of `vstab/render/render.py`
-(grid path; `affine_to_flow` comes with the affine smoothing path).
+"""Full-frame stabilized renderer, the port of `vstab/render/render.py`.
+
+It takes per-frame affine warps [T,2,3] (affine smoothing path) or per-frame
+grid displacement fields [T,GH,GW,2] (sparse-LS path), turns them into a
+dense backward-warp flow, samples the frames and applies the crop policy.
 
 Frames are sampled once by `warp_twopass` (mean shift plus the vertical and
 horizontal 1D kernels), the crop zoom is a separable resample by two tent
@@ -12,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import logging
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from vstab_torch.core.config import RenderConfig
 from vstab_torch.core.precision import einsum_f32
+from vstab_torch.core.types import apply_affine
 from vstab_torch.kernels import twopass_validity, warp_twopass
 
 log = logging.getLogger("vstab_torch.render")
@@ -29,6 +33,13 @@ def _base_grid(h: int, w: int, device):
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
     xx = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
     return xx, yy
+
+
+def affine_to_flow(transforms: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[T,2,3] output->input affines -> backward-warp flow [T,H,W,2]."""
+    xx, yy = _base_grid(h, w, transforms.device)
+    pts = torch.stack([xx, yy], dim=-1)  # [H,W,2]
+    return apply_affine(transforms[:, None, None], pts[None]) - pts[None]
 
 
 def grid_to_flow(disp: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -99,14 +110,26 @@ def _resize_mean_weights(g: int, n: int) -> tuple:
 
 def residual_disp_bound(path: np.ndarray, h: int, w: int, method: str) -> float:
     """Upper bound (px) on max_t,p |flow_t(p) - mean_p flow_t| of the dense
-    warp flow induced by the grid `path` [T,GH,GW,2] (host-side numpy f32):
-    the extrema sit at the vertices, the pixel mean is the vertex-weighted
-    average."""
+    warp flow induced by `path`: the residual the two-pass warp must cover.
+
+    affine [T,2,3]: the flow is affine in (x,y); its pixel mean equals its
+    value at the grid center and its extrema sit at the corners.
+    grid [T,GH,GW,2]: the dense flow is a separable bilinear upsample, so the
+    extrema sit at the vertices and the pixel mean is the vertex-weighted
+    average with the `_resize_mean_weights` weights. Host-side numpy f32, so
+    the whole-clip and blocked pipelines compute identical bounds."""
     path = np.asarray(path, dtype=np.float32)
     if path.size == 0:
         return 0.0
-    if method != "sparse_ls":
-        raise NotImplementedError(f"residual bound for method={method!r} is not ported yet")
+    if method == "affine":
+        pts = np.array(
+            [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1],
+             [(w - 1) / 2.0, (h - 1) / 2.0]],
+            np.float32,
+        )  # 4 corners + center
+        lin = path[:, :, :2] @ pts.T + path[:, :, 2:3]  # [T,2,5] mapped pts
+        fl = lin - pts.T[None]  # flow at the 5 points
+        return float(np.abs(fl[:, :, :4] - fl[:, :, 4:5]).max())
     t, gh, gw, _ = path.shape
     wy = np.asarray(_resize_mean_weights(gh, h), np.float32)
     wx = np.asarray(_resize_mean_weights(gw, w), np.float32)
@@ -135,31 +158,51 @@ def pick_max_disp(bound: float, cfg: RenderConfig) -> int:
 
 def render_stabilized(
     frames: torch.Tensor, flow: torch.Tensor, cfg: RenderConfig,
-    max_disp: Optional[int] = None,
+    scale: Union[torch.Tensor, float, None] = None, max_disp: Optional[int] = None,
 ) -> torch.Tensor:
     """Backward-warp frames [T,H,W,C] by flow [T,H,W,2] with crop policy.
-    `max_disp` overrides cfg.max_residual_disp."""
+
+    `scale` (a 0-dim tensor or a float) overrides the crop zoom: the blocked
+    pipeline needs the 'auto' minimum over all blocks' per-frame scales,
+    known only after a first sweep. `max_disp` overrides
+    cfg.max_residual_disp; callers derive it from the solved path with
+    residual_disp_bound / pick_max_disp."""
     t, h, w, c = frames.shape
     d = cfg.max_residual_disp if max_disp is None else max_disp
     warped = warp_twopass(frames, flow, max_disp=d)
     mask = twopass_validity((h, w), flow, d)[..., None]
     if cfg.crop_mode == "none":
         return warped * mask + cfg.border_value * (1.0 - mask)
-    if cfg.crop_mode == "fixed":
-        scale = torch.tensor(cfg.fixed_crop_ratio, dtype=torch.float32, device=frames.device)
-    elif cfg.crop_mode == "auto":
-        scale = _auto_scale(flow)
-    else:
-        raise ValueError(f"unknown crop_mode: {cfg.crop_mode}")
+    if scale is None:
+        if cfg.crop_mode == "fixed":
+            scale = cfg.fixed_crop_ratio
+        elif cfg.crop_mode == "auto":
+            scale = _auto_scale(flow)
+        else:
+            raise ValueError(f"unknown crop_mode: {cfg.crop_mode}")
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=frames.device)
     out = zoom_resample(warped, scale)
     maskz = zoom_resample(mask, scale)
     valid = (maskz > 0.999).to(out.dtype)
     return out * valid + cfg.border_value * (1.0 - valid)
 
 
+def render_affine(frames: torch.Tensor, transforms: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    flow = affine_to_flow(transforms, frames.shape[1], frames.shape[2])
+    return render_stabilized(frames, flow, cfg)
+
+
+def render_grid(frames: torch.Tensor, disp: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    flow = grid_to_flow(disp, frames.shape[1], frames.shape[2])
+    return render_stabilized(frames, flow, cfg)
+
+
 __all__ = [
+    "affine_to_flow",
     "grid_to_flow",
     "pick_max_disp",
+    "render_affine",
+    "render_grid",
     "render_stabilized",
     "residual_disp_bound",
     "zoom_resample",
