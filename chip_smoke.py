@@ -43,13 +43,16 @@ step 11, once every path has shown its shapes and buckets):
    to uint8 levels) through `stabilize_blocked` with `block_len=32`, from
    float32 and from uint8 frames, both against `stabilize` on the card (same
    `max_disp`, 99.9% of the pixels within 2e-3), with the stats, frames/s,
-   peak device memory of the blocked and the whole-clip run and the profiler's
-   device idle share of a blocked run;
+   peak device memory of the blocked and the whole-clip run, the profiler's
+   device idle share of a blocked run, and the frames/s of warm blocked runs
+   with the pipeline's fetch on a second stream against a plain `.cpu()`;
 10. blocked, 1080p: a 33-frame 1920x1080 clip with `block_len=16` the same
    way: the kernels' first run at the 1080p pyramid shapes (1080 rows padded
    to 1088) and the 1920-wide render. Step 4 holds every kernel against its
-   plain version at the shapes of steps 9 and 10 too. Then the peak device
-   memory of one 64-frame 1080p uint8 render dispatch;
+   plain version at the shapes of steps 7 to 10 too (the affine path's bucket,
+   the batch's, the two block lengths), and holds each path's launch counts
+   to its chunks of frame pairs and its render dispatches. Then the peak
+   device memory of one 64-frame 1080p uint8 render dispatch;
 11. file to file, where the machine has OpenCV (`cv2`; read once at the start
    and printed): writes a short 720p file and runs `python -m vstab_torch
    stabilize ... --blocked --block-len 16` as a subprocess, then checks its
@@ -183,8 +186,9 @@ def _bound(row: dict, hbm: float) -> None:
 
 def kernel_phase(hbm: float, paths: dict):
     """Checks and times every kernel at the shapes of every path in `paths`
-    (name -> {"hw", "n" frames a render dispatch, "d" the bucket, "launches"
-    of one run}); returns (rows, per_shape, floor_ms): the one row per kernel
+    (name -> {"hw", "n" frames a render dispatch, "d" the bucket, "chunks" of
+    frame pairs the flow ran on, render "dispatches", "launches" of one run);
+    returns (rows, per_shape, floor_ms): the one row per kernel
     of the `{"kernels": ...}` line, timed at the kernel's largest shape on the
     whole-clip path, every (kernel, shape, path) row with its launches a run,
     and the time this timing gives a near-empty launch."""
@@ -201,15 +205,18 @@ def kernel_phase(hbm: float, paths: dict):
          "(cost_volume on 1x2x8x8 bf16, timed like every kernel: no kernel's time can be below it)")
 
     def per_level(path, kernel, levels):
-        n = paths[path]["launches"][kernel]
-        if n % levels:
-            raise AssertionError(f"{path}: {kernel} launches {n} are not a multiple of the {levels} levels")
-        return n // levels
+        """Launches of a flow kernel at each of its levels: one a chunk of pairs."""
+        n, chunks = paths[path]["launches"][kernel], paths[path]["chunks"]
+        if n != levels * chunks:
+            raise AssertionError(
+                f"{path}: {kernel} launched {n} times, not once a level ({levels}) for each of {chunks} chunks")
+        return chunks
 
     # -- cost volume, r=4: bf16 at the five levels of a chunk of 8 pairs
     # (tensor cores; useful operations 2*81*C a pixel) and, for the whole-clip
     # path, one f32 shape (CUDA cores). The forward pass launches it once a
-    # level for every chunk of pairs.
+    # level for every chunk of pairs. Every path gets its own rows, also where
+    # its frame size is one already shown: its launches belong to its shapes.
     def cv_rows(path, f32_too):
         shapes = _level_shapes(*paths[path]["hw"])
         count = per_level(path, "cost_volume", len(shapes))
@@ -258,15 +265,14 @@ def kernel_phase(hbm: float, paths: dict):
             ))
             del img, flow, clipped, img_nchw, grid
 
-    cv_rows(_MAIN, f32_too=True)
-    warp_rows(_MAIN)
-    # Checked, not timed: the vector kernel in f32 (C=8: two vectors a pixel,
-    # the runtime count) and the element kernel (C=3).
-    for shape, dtype in (((2, 48, 80, 8), torch.float32), ((2, 48, 80, 3), torch.bfloat16)):
-        img = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        flow = (torch.rand(shape[:3] + (2,), generator=g, device="cuda") * 24 - 12).to(dtype)
-        err = _check(f"bilinear_warp {shape} {dtype}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, flow.clamp(-8, 8)))
-        per_shape[-1]["max_abs_err"] = max(per_shape[-1]["max_abs_err"], err)
+    def extra_warp_checks():
+        # Checked, not timed: the vector kernel in f32 (C=8: two vectors a pixel,
+        # the runtime count) and the element kernel (C=3).
+        for shape, dtype in (((2, 48, 80, 8), torch.float32), ((2, 48, 80, 3), torch.bfloat16)):
+            img = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            flow = (torch.rand(shape[:3] + (2,), generator=g, device="cuda") * 24 - 12).to(dtype)
+            err = _check(f"bilinear_warp {shape} {dtype}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, flow.clamp(-8, 8)))
+            per_shape[-1]["max_abs_err"] = max(per_shape[-1]["max_abs_err"], err)
 
     # -- 1D render warps, f32, at the padded render width W + 2(d+1). Two
     # kinds of field: "random" draws every pixel in +-1.2 d, so neighbouring
@@ -282,9 +288,9 @@ def kernel_phase(hbm: float, paths: dict):
         return F.interpolate(coarse, size=shape[1:], mode="bilinear", align_corners=False)[:, 0].contiguous()
 
     # A render dispatch of n frames launches vwarp and hwarp once on the
-    # frame, hwarp the other times on a field: four rows a path (the random
-    # vwarp row only on the whole-clip path), each checked in both modes on
-    # the field it is timed on.
+    # frame, hwarp the other times on a field (two or three, by the bucket):
+    # four rows a path (the random vwarp row only on the whole-clip path),
+    # each checked in both modes on the field it is timed on.
     def render_rows(path):
         n, (h, w), d = paths[path]["n"], paths[path]["hw"], paths[path]["d"]
         launches = paths[path]["launches"]
@@ -302,8 +308,10 @@ def kernel_phase(hbm: float, paths: dict):
                     errs["vwarp"].append(_check(f"vwarp {shape} d={dd} {mode}", vwarp(x, f, dd, mode), vwarp_plain(x, f, dd, mode)))
                     errs["hwarp"].append(_check(f"hwarp {shape} d={dd} {mode}", hwarp(x, f, dd, mode), hwarp_plain(x, f, dd, mode)))
                 del x, f
-        if launches["hwarp"] % launches["vwarp"]:
-            raise AssertionError(f"{path}: hwarp launches {launches['hwarp']} are no multiple of vwarp's {launches['vwarp']}")
+        if launches["vwarp"] != paths[path]["dispatches"] or launches["hwarp"] % launches["vwarp"]:
+            raise AssertionError(
+                f"{path}: {paths[path]['dispatches']} render dispatches launched vwarp "
+                f"{launches['vwarp']} and hwarp {launches['hwarp']} times")
         cases = [
             ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", launches["vwarp"]),
             ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
@@ -343,18 +351,14 @@ def kernel_phase(hbm: float, paths: dict):
                 del fs
             del x, f, fc, zero, u, v, grid
 
-    render_rows(_MAIN)
-    # The other paths: flow shapes that the whole-clip path has not shown
-    # (another frame size), and their render dispatches (block length, width
-    # and bucket of their own).
-    seen_hw = {paths[_MAIN]["hw"]}
-    for path in paths:
+    # The whole-clip path first (a kernel's first row is its row of the
+    # `kernels` line), then every other path at its own shapes: its pyramid
+    # levels, and its render dispatches (block length, width and bucket).
+    for path in [_MAIN] + [p for p in paths if p != _MAIN]:
+        cv_rows(path, f32_too=path == _MAIN)
+        warp_rows(path)
         if path == _MAIN:
-            continue
-        if paths[path]["hw"] not in seen_hw:
-            seen_hw.add(paths[path]["hw"])
-            cv_rows(path, f32_too=False)
-            warp_rows(path)
+            extra_warp_checks()
         render_rows(path)
     for row in per_shape:
         _bound(row, hbm)
@@ -418,13 +422,17 @@ def _check_frames(name: str, out, shape) -> None:
         raise AssertionError(f"{name}: bad output: shape {tuple(out.shape)}, finite {finite}")
 
 
-def _bucket(diags: dict, h: int, w: int, cfg) -> tuple:
-    """(residual bound, bucket) that `stabilize` derived from its solved path."""
-    from vstab_torch.render.render import pick_max_disp, residual_disp_bound
+def _flow_chunks(pairs: int) -> int:
+    """Chunks of 8 frame pairs that `clip_flow` runs for `pairs` pairs (up to 2.2 megapixels)."""
+    return -(-pairs // 8)
 
-    path = diags["warps"] if cfg.smooth.method == "affine" else diags["profiles"] - diags["smoothed"]
-    bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
-    return bound, pick_max_disp(bound, cfg.render)
+
+def _bucket(frames: torch.Tensor, params: dict, cfg) -> tuple:
+    """(residual bound, render bucket) of the path `stabilize` solves on these frames."""
+    from vstab_torch.pipeline import clip_flow, render_bucket, smooth_paths
+
+    hw = tuple(frames.shape[1:3])
+    return render_bucket(smooth_paths(clip_flow(params, frames, cfg), cfg, hw)[0], cfg, hw)
 
 
 def _close(name: str, got, want, tol: float = 2e-3, share: float = 0.999) -> None:
@@ -465,11 +473,12 @@ def main_path(card: str):
     res = bench.measure(frames, params, cfg, iters=3, stages=True)
     _say("main path: " + json.dumps({**res, "card": card}))
     device_ms = profile(lambda: vstab_torch.stabilize(frames, params, cfg))
-    path = {"hw": (720, 1280), "n": 48, "d": res["max_disp"], "launches": launches}
+    path = {"hw": (720, 1280), "n": 48, "d": res["max_disp"], "chunks": _flow_chunks(47),
+            "dispatches": 1, "launches": launches}
     return path, device_ms, frames_np, frames, params
 
 
-def affine_phase(frames: torch.Tensor, params: dict, card: str) -> None:
+def affine_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
     """`stabilize` with the global-affine smoothing on the main clip, and the
     small clip's card-against-CPU check for that method."""
     import vstab_torch
@@ -478,18 +487,17 @@ def affine_phase(frames: torch.Tensor, params: dict, card: str) -> None:
     base = vstab_torch.Config()
     cfg = dataclasses.replace(base, smooth=dataclasses.replace(base.smooth, method="affine"))
     t, h, w, _ = frames.shape
-    (out, diags), launches, _ = _run_counted("affine", lambda: vstab_torch.stabilize(frames, params, cfg))
+    (out, _), launches, _ = _run_counted("affine", lambda: vstab_torch.stabilize(frames, params, cfg))
     _check_frames("affine", out, frames.shape)
-    bound, d = _bucket(diags, h, w, cfg)
-    _, dt = bench.timed(lambda: vstab_torch.stabilize(frames, params, cfg))
+    res = bench.measure(frames, params, cfg, iters=3, stages=True)
     _say("affine: " + json.dumps({
-        "frames_per_s": t / dt, "run_s": dt, "residual_bound_px": bound, "max_disp": d,
-        "non_border_pixels": float((out != 0).any(dim=-1).float().mean()), "card": card,
-    }))
+        **res, "non_border_pixels": float((out != 0).any(dim=-1).float().mean()), "card": card}))
     small_clip_check("affine")
+    return {"hw": (h, w), "n": t, "d": res["max_disp"], "chunks": _flow_chunks(t - 1),
+            "dispatches": 1, "launches": launches}
 
 
-def batch_phase(frames: torch.Tensor, params: dict, card: str) -> None:
+def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
     """`stabilize_batch` on the clip and its time reverse: each clip's output
     against `stabilize` on that clip with the batch's bucket."""
     import vstab_torch
@@ -502,7 +510,7 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> None:
     out, launches, dt = _run_counted("batch", lambda: vstab_torch.stabilize_batch(batch, params, cfg))
     peak = torch.cuda.max_memory_allocated() / 1e9
     _check_frames("batch", out, batch.shape)
-    bounds = [_bucket(vstab_torch.stabilize(clip, params, cfg)[1], h, w, cfg)[0] for clip in batch]
+    bounds = [_bucket(clip, params, cfg)[0] for clip in batch]
     d = pick_max_disp(max(bounds), cfg.render)
     static = dataclasses.replace(
         cfg, render=dataclasses.replace(cfg.render, adaptive_max_disp=False, max_residual_disp=d))
@@ -513,6 +521,8 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> None:
         "clips": 2, "frames_per_s": 2 * t / dt, "run_s": dt, "residual_bounds_px": bounds,
         "max_disp": d, "peak_mem_gb": peak, "card": card,
     }))
+    return {"hw": (h, w), "n": t, "d": d, "chunks": 2 * _flow_chunks(t - 1),
+            "dispatches": 2, "launches": launches}
 
 
 class _StatsCatcher(logging.Handler):
@@ -562,13 +572,13 @@ def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card:
     vstab_torch.stabilize(dev_frames, params, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want, diags = vstab_torch.stabilize(dev_frames, params, cfg)
+    want, _ = vstab_torch.stabilize(dev_frames, params, cfg)
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - t0
     whole_peak = torch.cuda.max_memory_allocated() / 1e9
-    bound, d = _bucket(diags, h, w, cfg)
+    bound, d = _bucket(dev_frames, params, cfg)
     want = want.cpu()
-    del dev_frames, diags
+    del dev_frames
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -584,6 +594,8 @@ def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card:
         f"{name} uint8", lambda: _blocked_run(u8, params, cfg, block_len))
     if stats_u8["max_disp"] != d:
         raise AssertionError(f"{name}: uint8 max_disp {stats_u8['max_disp']} != whole-clip {d}")
+    if launches_u8 != launches:
+        raise AssertionError(f"{name}: the uint8 run launched {launches_u8}, the float32 run {launches}")
     _close(f"{name} uint8 vs whole clip", got8, want)
     del got, got8, want
     _say(f"{name}: " + json.dumps({
@@ -594,7 +606,41 @@ def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card:
     }))
     _say(f"{name}: profile of one more blocked float32 run ({card})")
     profile(lambda: vstab_torch.stabilize_blocked(f32, params, cfg, block_len=block_len))
-    return {"hw": (h, w), "n": min(block_len, t), "d": d, "launches": launches}
+    fetch_ab(name, {"float32": f32, "uint8": u8}, params, cfg, block_len, card)
+    blocks = -(-t // block_len)  # each padded to block_len pairs for the flow, one render dispatch
+    return {"hw": (h, w), "n": min(block_len, t), "d": d, "chunks": blocks * _flow_chunks(block_len),
+            "dispatches": blocks, "launches": launches}
+
+
+class _PlainFetch:
+    """`tensor.cpu()` at the drain, in place of the blocked pipeline's fetch
+    on a second stream: what `fetch_ab` compares it with."""
+
+    def __init__(self, x: torch.Tensor, copy_stream):
+        self._x = x
+
+    def result(self) -> np.ndarray:
+        return self._x.cpu().numpy()
+
+
+def fetch_ab(name: str, inputs: dict, params: dict, cfg, block_len: int, card: str) -> None:
+    """Frames/s of warm blocked runs with the pipeline's second-stream fetch
+    (`_Fetch`) and with a plain `.cpu()`, on the same frames in the order
+    stream, plain, plain, stream."""
+    from vstab_torch import pipeline_blocked as pb
+
+    stream = pb._Fetch
+    res = {}
+    try:
+        for kind, frames in inputs.items():
+            fps = {"stream": [], "plain": []}
+            for how in ("stream", "plain", "plain", "stream"):
+                pb._Fetch = stream if how == "stream" else _PlainFetch
+                fps[how].append(_blocked_run(frames, params, cfg, block_len)[1]["fps_processed"])
+            res[kind] = fps
+    finally:
+        pb._Fetch = stream
+    _say(f"{name} fetch A/B: " + json.dumps({"fps_processed": res, "card": card}))
 
 
 def render_memory_probe(card: str) -> None:
@@ -752,8 +798,8 @@ def main() -> int:
     _say(f"kernel build: {_build.build_all():.1f} s ({', '.join(_build.SOURCES)})")
     paths = {}
     paths[_MAIN], device_ms, frames_np, frames, params = main_path(card)
-    affine_phase(frames, params, card)
-    batch_phase(frames, params, card)
+    paths["affine_720p"] = affine_phase(frames, params, card)
+    paths["batch_720p"] = batch_phase(frames, params, card)
     del frames
     torch.cuda.empty_cache()
 

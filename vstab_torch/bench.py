@@ -24,7 +24,6 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Optional
 
 import torch
 
@@ -34,11 +33,12 @@ from vstab_torch.pipeline import (
     clip_flow,
     default_params,
     path_to_flow,
+    render_bucket,
     resolve_device,
     smooth_paths,
     stabilize,
 )
-from vstab_torch.render.render import pick_max_disp, render_stabilized, residual_disp_bound
+from vstab_torch.render.render import render_stabilized
 
 
 def card() -> str:
@@ -84,8 +84,7 @@ def measure(
 
         def solve():
             path, _ = smooth_paths(flow, cfg, (h, w))
-            bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
-            return path, bound, pick_max_disp(bound, cfg.render)
+            return (path,) + render_bucket(path, cfg, (h, w))
 
         (path, bound, d), dt = timed(solve)
         res.update(smooth_ms=dt * 1e3, residual_bound_px=bound, max_disp=d)
@@ -120,13 +119,3 @@ def run(args) -> int:
         "unit": "frames/s", "device": device,
     }))
     return 0
-
-
-def main(argv: Optional[list] = None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m vstab_torch.bench")
-    add_arguments(ap)
-    return run(ap.parse_args(argv))
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -108,6 +108,15 @@ def path_to_flow(path: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.
     return grid_to_flow(path, h, w)
 
 
+def render_bucket(path, cfg: Config, hw: Tuple[int, int]) -> Tuple[float, int]:
+    """(residual bound in px, render bucket) of a solved per-frame path
+    (tensor or array [T,...]): the one place where the adaptive bound of the
+    render warps is derived. Reads the path back to the host."""
+    h, w = hw
+    bound = residual_disp_bound(torch.as_tensor(path).cpu().numpy(), h, w, cfg.smooth.method)
+    return bound, pick_max_disp(bound, cfg.render)
+
+
 @torch.inference_mode()
 def smooth_and_render(
     frames: torch.Tensor, flow: torch.Tensor, cfg: Config
@@ -137,8 +146,7 @@ def stabilize(
         return smooth_and_render(frames, flow, cfg)
     t, h, w, _ = frames.shape
     path, diags = smooth_paths(flow, cfg, (h, w))
-    bound = residual_disp_bound(path.cpu().numpy(), h, w, cfg.smooth.method)
-    d = pick_max_disp(bound, cfg.render)
+    _, d = render_bucket(path, cfg, (h, w))
     out = render_stabilized(frames, path_to_flow(path, cfg, (h, w)), cfg.render, max_disp=d)
     return out, diags
 
@@ -168,10 +176,7 @@ def stabilize_batch(
     )
     max_disp = None
     if cfg.render.adaptive_max_disp:
-        flat = paths.reshape((b * t,) + paths.shape[2:]).cpu().numpy()
-        max_disp = pick_max_disp(
-            residual_disp_bound(flat, h, w, cfg.smooth.method), cfg.render
-        )
+        _, max_disp = render_bucket(paths.flatten(0, 1), cfg, (h, w))
     out = torch.empty_like(frames)
     for i in range(b):
         out[i] = render_stabilized(
@@ -216,6 +221,7 @@ __all__ = [
     "clip_flow",
     "default_params",
     "path_to_flow",
+    "render_bucket",
     "resolve_device",
     "smooth_and_render",
     "smooth_paths",

@@ -59,13 +59,15 @@ import torch
 
 from vstab_torch.core.config import Config
 from vstab_torch.core.precision import pin_full_f32
-from vstab_torch.pipeline import Params, _on, clip_flow, path_to_flow, resolve_device
-from vstab_torch.render.render import (
-    _auto_scale_per_frame,
-    pick_max_disp,
-    render_stabilized,
-    residual_disp_bound,
+from vstab_torch.pipeline import (
+    Params,
+    _on,
+    clip_flow,
+    path_to_flow,
+    render_bucket,
+    resolve_device,
 )
+from vstab_torch.render.render import _auto_scale_per_frame, render_stabilized
 from vstab_torch.smooth.affine import (
     chain_path,
     fit_affine_from_flow,
@@ -204,7 +206,12 @@ class _Fetch:
     stream just after the result's last kernel, into pinned memory;
     `result()` waits for the copy's own event, not for work queued since.
     The device tensor is kept until then, so the caching allocator cannot
-    hand its memory to a later block while the copy is still to run."""
+    hand its memory to a later block while the copy is still to run.
+
+    Against a plain `.cpu()` at the drain, warm blocked runs process 2.5 to 3
+    times the frames a second at 95x720x1280 and about 2 times at
+    33x1080x1920 (`chip_smoke.py`'s fetch A/B, NVIDIA H100 80GB HBM3,
+    700.00 W)."""
 
     def __init__(self, x: torch.Tensor, copy_stream):
         self._ready = None
@@ -573,9 +580,7 @@ def _run_blocked(
     # --- global path solve (tiny) + adaptive render displacement bound. The
     # path goes to the device once; the sweeps below slice it there.
     path = _solve_path(motion, cfg, dev)  # [T, GH,GW,2] or [T,2,3]
-    max_disp = pick_max_disp(
-        residual_disp_bound(path, hw[0], hw[1], cfg.smooth.method), cfg.render
-    )
+    _, max_disp = render_bucket(path, cfg, hw)
     path_dev = torch.from_numpy(path).to(dev)
     log.info("path solved: T=%d, render max_disp=%d", t, max_disp)
 
