@@ -5,11 +5,12 @@
 
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
 and the repository's `ckpts/`. It does the following (step 4 runs after
-step 11, once every path has shown its shapes and buckets):
+step 15, once every path has shown its shapes, dtypes and buckets; step 12
+after it):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
    CUDA versions; exits non-zero when torch sees no CUDA device;
-2. builds the four hand-written kernels from `vstab_torch/kernels/csrc/`
+2. builds the hand-written kernels (four forward, two backward) from `vstab_torch/kernels/csrc/`
    (one `nvcc` per source, in parallel) and prints the build time;
 3. runs the main path: `default_params` reads `ckpts/flow_086000.msgpack`
    with the port's own reader, then `stabilize` runs on the 48x720x1280
@@ -18,8 +19,8 @@ step 11, once every path has shown its shapes and buckets):
    read just after; every kernel must have launched. A second, timed run
    gives frames/s; a third gives the flow / smooth / render times; a fourth
    runs under torch.profiler for device time by kernel;
-4. holds each kernel against its plain torch version on the card, at the
-   shapes the main path gives it (the cost volume at its five pyramid levels
+4. holds each forward kernel against its plain torch version on the card, at
+   the shapes the main path gives it (the cost volume at its five pyramid levels
    in bf16 and one f32 shape; the feature warp at the four levels it runs
    on, plus one f32 shape for its vector kernel and one 3-channel shape for
    its element kernel; the render warps at the bucket the main path chose,
@@ -51,16 +52,51 @@ step 11, once every path has shown its shapes and buckets):
    to 1088) and the 1920-wide render. Step 4 holds every kernel against its
    plain version at the shapes of steps 7 to 10 too (the affine path's bucket,
    the batch's, the two block lengths), and holds each path's launch counts
-   to its chunks of frame pairs and its render dispatches. Then the peak
-   device memory of one 64-frame 1080p uint8 render dispatch;
+   to its chunks of frame pairs and its render dispatches. The trainer's
+   path (step 13) and the eval sweep's (step 15) are held the same way: the
+   cost volume and the feature warp in f32 at the five and four level shapes
+   of a batch of 8 at 192x256, the batch maker's unclipped 3-channel f32 warp
+   of the frames (8x192x256x3, displacements to +-30) and the photometric
+   loss's (8x48x64x3); the sweep's bf16 levels at 256x320 and its 48-frame
+   render dispatches at each clip's bucket, with 5 and 4 launches a chunk of
+   pairs and the render warps' launches a dispatch. Then the peak device
+   memory of one 64-frame 1080p uint8 render dispatch;
 11. file to file, where the machine has OpenCV (`cv2`; read once at the start
    and printed): writes a short 720p file and runs `python -m vstab_torch
    stabilize ... --blocked --block-len 16` as a subprocess, then checks its
    record and the output's frame count. Without `cv2` it says that this step
    was not run.
 
-Every path of steps 3 and 7 to 10 is driven with the launch counters zeroed
-just before and read just after, and must have launched all four kernels.
+12. backward kernels: the gradients of the cost volume and of the feature
+   warp (`KERNELS_BWD`), each against its plain backward version and against
+   autograd of the plain forward, at the trainer's level shapes (batch 8 at
+   192x256) in f32 and bf16 and at the 720p level in bf16, plus odd channel
+   counts, a smaller radius, flow off every edge, and the clipped-flow case
+   (zero flow gradient where the forward clipped); timed beside the plain
+   version and, for the warp, `F.grid_sample`'s backward;
+13. train: the default `FlowConfig` in f32 from `init_params(0)`, batch 8 at
+   192x256, 64 scenes: on the first batch every parameter's gradient through
+   the kernels against the same loss with the plain versions swapped in on
+   the card, in the supervised and in the photometric mode; then 40 steps of `train_fast` with every launch counted (5 cost
+   volumes and 4 + 4 warps a step forward, 5 and 4 backward), finite metrics
+   at every chunk, the last 10 steps' mean loss below the first 10's, and a
+   falling loss over ten more steps on one fixed batch; five photometric
+   steps on that pair (one more warp a step forward and backward: 5 + 5);
+   ms a step split into batch, forward,
+   backward and optimizer, peak memory, the profiler's device time of the two
+   backward kernels in a step; 10 steps in bf16 from the same init; 20 steps
+   warm-started from `flow_086000` with `eval_epe` before and after;
+14. checkpoint round trip: the file `train_fast` saved, read back with the
+   port's reader, gives the same flow on a fixed pair, to 0;
+15. eval: `run_sweep` on three synthetic 48x256x320 clips (two planar, one
+   with moving occluders) with `flow_086000`: three records with scores in
+   [0, 1]; a second call resumes without stabilizing anything; then the same
+   through `python -m vstab_torch eval`. Needs `cv2` and raises without it.
+
+Every path of steps 3, 7 to 10 and 15 is driven with the launch counters
+zeroed just before and read just after, and must have launched all four
+forward kernels; step 13 does the same for the two kernels inside the network
+and their backward kernels.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -69,8 +105,11 @@ and the script then exits non-zero without that line.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import logging
 import os
@@ -185,17 +224,24 @@ def _bound(row: dict, hbm: float) -> None:
 
 
 def kernel_phase(hbm: float, paths: dict):
-    """Checks and times every kernel at the shapes of every path in `paths`
-    (name -> {"hw", "n" frames a render dispatch, "d" the bucket, "chunks" of
-    frame pairs the flow ran on, render "dispatches", "launches" of one run);
-    returns (rows, per_shape, floor_ms): the one row per kernel
-    of the `{"kernels": ...}` line, timed at the kernel's largest shape on the
-    whole-clip path, every (kernel, shape, path) row with its launches a run,
-    and the time this timing gives a near-empty launch."""
+    """Checks and times every forward kernel at the shapes and dtypes of
+    every path in `paths`: name -> {"hw" of the frames, "chunks" of frame
+    pairs the flow network ran on, "launches" of one run; where they are not
+    the serving paths' 8 and bf16, "pairs" a chunk and the "dtype" of the
+    network's features; for a path that renders, "n" frames a dispatch and
+    "renders", {bucket: dispatches}; for the trainer, "image_warps", {shape:
+    launches} of the 3-channel unclipped f32 warps outside the network, and
+    "also_check", shapes of that warp which another run of the path gives it}.
+    Holds each path's launch counts to these. Returns (rows, per_shape,
+    floor_ms): the one row per kernel of the `{"kernels": ...}` line, timed at
+    the kernel's largest shape on the whole-clip path, every (kernel, shape,
+    path) row with its launches a run, and the time this timing gives a
+    near-empty launch."""
     from vstab_torch.kernels import (
         bilinear_warp, bilinear_warp_plain, cost_volume, cost_volume_plain,
         hwarp, hwarp_plain, vwarp, vwarp_plain,
     )
+    from vstab_torch.kernels.warp import UNBOUNDED
 
     g = torch.Generator(device="cuda").manual_seed(0)
     per_shape, rows = [], {}
@@ -207,21 +253,25 @@ def kernel_phase(hbm: float, paths: dict):
     def per_level(path, kernel, levels):
         """Launches of a flow kernel at each of its levels: one a chunk of pairs."""
         n, chunks = paths[path]["launches"][kernel], paths[path]["chunks"]
+        if kernel == "bilinear_warp":
+            n -= sum(paths[path].get("image_warps", {}).values())
         if n != levels * chunks:
             raise AssertionError(
                 f"{path}: {kernel} launched {n} times, not once a level ({levels}) for each of {chunks} chunks")
         return chunks
 
-    # -- cost volume, r=4: bf16 at the five levels of a chunk of 8 pairs
-    # (tensor cores; useful operations 2*81*C a pixel) and, for the whole-clip
-    # path, one f32 shape (CUDA cores). The forward pass launches it once a
-    # level for every chunk of pairs. Every path gets its own rows, also where
-    # its frame size is one already shown: its launches belong to its shapes.
+    # -- cost volume, r=4: at the five levels of a chunk of pairs in the
+    # path's dtype (bf16: tensor cores, useful operations 2*81*C a pixel; f32,
+    # the trainer's: CUDA cores) and, for the whole-clip path, one f32 shape.
+    # The forward pass launches it once a level for every chunk of pairs.
+    # Every path gets its own rows, also where its frame size is one already
+    # shown: its launches belong to its shapes.
     def cv_rows(path, f32_too):
-        shapes = _level_shapes(*paths[path]["hw"])
+        path_dtype = paths[path].get("dtype", torch.bfloat16)
+        shapes = _level_shapes(*paths[path]["hw"], pairs=paths[path].get("pairs", 8))
         count = per_level(path, "cost_volume", len(shapes))
-        cases = [(s, torch.bfloat16) for s in shapes] + ([(_CV_F32_SHAPE, torch.float32)] if f32_too else [])
-        for shape, dtype in cases:
+        cases = [(s, path_dtype, count) for s in shapes] + ([(_CV_F32_SHAPE, torch.float32, 0)] if f32_too else [])
+        for shape, dtype, launches in cases:
             f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
             f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
             n, h, w, c = shape
@@ -229,7 +279,7 @@ def kernel_phase(hbm: float, paths: dict):
             bf16 = dtype == torch.bfloat16
             per_shape.append(dict(
                 kernel="cost_volume", path=path, shape=list(shape) + [str(dtype).split(".")[1], "r=4"],
-                launches=count if bf16 else 0,
+                launches=launches,
                 max_abs_err=_check(f"cost_volume {shape} {dtype}", cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4)),
                 ms=_time_ms(lambda: cost_volume(f1, f2, 4)),
                 plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, 4), iters=5),
@@ -240,30 +290,52 @@ def kernel_phase(hbm: float, paths: dict):
 
     # -- feature warp: the forward pass warps f2 at every level but the
     # coarsest, once a level for every chunk of pairs, so its launches are
-    # four shapes the same number of times each. bf16 image and flow, the
-    # flow up to +-12 px so that the kernel's +-8 clip matters; the plain
-    # version gets the clipped flow. All four go to the vector kernel.
+    # four shapes the same number of times each. Image and flow in the path's
+    # dtype (bf16, or the trainer's f32), the flow up to +-12 px so that the
+    # kernel's +-8 clip matters; the plain version gets the clipped flow. All
+    # four go to the vector kernel.
     def warp_rows(path):
-        shapes = _level_shapes(*paths[path]["hw"])[:4]
+        dtype = paths[path].get("dtype", torch.bfloat16)
+        shapes = _level_shapes(*paths[path]["hw"], pairs=paths[path].get("pairs", 8))[:4]
         count = per_level(path, "bilinear_warp", len(shapes))
         for shape in shapes:
-            n, h, w, c = shape
-            img = torch.randn(shape, generator=g, device="cuda").bfloat16()
-            flow = (torch.rand((n, h, w, 2), generator=g, device="cuda") * 24 - 12).bfloat16()
-            clipped = flow.clamp(-8, 8)
-            img_nchw = img.permute(0, 3, 1, 2)
-            grid = _grid(h, w, clipped[..., 0].float(), clipped[..., 1].float(), torch.bfloat16)
-            per_shape.append(dict(
-                kernel="bilinear_warp", path=path, shape=list(shape) + ["bfloat16", "bfloat16 flow to +-12"],
-                launches=count,
-                max_abs_err=_check(f"bilinear_warp {shape}", bilinear_warp(img, flow, 8), bilinear_warp_plain(img, clipped)),
-                ms=_time_ms(lambda: bilinear_warp(img, flow, 8)),
-                plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
-                bytes=2 * img.numel() * 2 + flow.numel() * 2, flops=None,
-                library_ms=_time_ms(lambda: F.grid_sample(
-                    img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-            ))
-            del img, flow, clipped, img_nchw, grid
+            warp_row(path, shape, dtype, 12.0, 8, count)
+
+    def warp_row(path, shape, dtype, amp, max_disp, count):
+        n, h, w, c = shape
+        # features are unit normals, images (3 channels) lie in [0, 1)
+        img = (torch.rand if c == 3 else torch.randn)(shape, generator=g, device="cuda").to(dtype)
+        flow = ((torch.rand((n, h, w, 2), generator=g, device="cuda") * 2 - 1) * amp).to(dtype)
+        clipped = flow.clamp(-max_disp, max_disp)
+        img_nchw = img.permute(0, 3, 1, 2)
+        grid = _grid(h, w, clipped[..., 0].float(), clipped[..., 1].float(), dtype)
+        name = _dt(dtype)
+        per_shape.append(dict(
+            kernel="bilinear_warp", path=path,
+            shape=list(shape) + [name, f"{name} flow to +-{amp:g}" + (", unclipped" if max_disp == UNBOUNDED else "")],
+            launches=count,
+            max_abs_err=_check(f"bilinear_warp {shape} {name}", bilinear_warp(img, flow, max_disp), bilinear_warp_plain(img, clipped)),
+            ms=_time_ms(lambda: bilinear_warp(img, flow, max_disp)),
+            plain_ms=_time_ms(lambda: bilinear_warp_plain(img, clipped)),
+            bytes=(2 * img.numel() + flow.numel()) * img.element_size(), flops=None,
+            library_ms=_time_ms(lambda: F.grid_sample(
+                img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+        ))
+
+    # -- the trainer's warps outside the network: the batch maker warps the
+    # frames (and its occluders' textures) by the ground-truth flow, 3
+    # channels in f32, unclipped (the kernel under `UNBOUNDED`; C = 3 takes
+    # the element kernel), with displacements well past the +-8 of the
+    # feature warp. The photometric loss warps the second image at the finest
+    # estimated level the same way: its shape is checked, not timed.
+    def image_warp_rows(path):
+        for shape, count in paths[path].get("image_warps", {}).items():
+            warp_row(path, shape, torch.float32, 30.0, UNBOUNDED, count)
+        for shape in paths[path].get("also_check", ()):
+            img = torch.rand(shape, generator=g, device="cuda")
+            flow = (torch.rand(shape[:3] + (2,), generator=g, device="cuda") * 2 - 1) * 12.0
+            err = _check(f"bilinear_warp {shape} float32, unclipped", bilinear_warp(img, flow, UNBOUNDED), bilinear_warp_plain(img, flow))
+            per_shape[-1]["max_abs_err"] = max(per_shape[-1]["max_abs_err"], err)
 
     def extra_warp_checks():
         # Checked, not timed: the vector kernel in f32 (C=8: two vectors a pixel,
@@ -288,12 +360,23 @@ def kernel_phase(hbm: float, paths: dict):
         return F.interpolate(coarse, size=shape[1:], mode="bilinear", align_corners=False)[:, 0].contiguous()
 
     # A render dispatch of n frames launches vwarp and hwarp once on the
-    # frame, hwarp the other times on a field (two or three, by the bucket):
-    # four rows a path (the random vwarp row only on the whole-clip path),
-    # each checked in both modes on the field it is timed on.
+    # frame, hwarp the other times on a field (`warp_twopass`: twice up to the
+    # bucket 63, three times above): four rows a path and bucket (the random
+    # vwarp row only on the whole-clip path), each checked in both modes on
+    # the field it is timed on.
     def render_rows(path):
-        n, (h, w), d = paths[path]["n"], paths[path]["hw"], paths[path]["d"]
-        launches = paths[path]["launches"]
+        renders, launches = paths[path].get("renders", {}), paths[path]["launches"]
+        on_fields = {d: 2 if d <= 63 else 3 for d in renders}
+        want = (sum(renders.values()), sum(k * (1 + on_fields[d]) for d, k in renders.items()))
+        if (launches["vwarp"], launches["hwarp"]) != want:
+            raise AssertionError(
+                f"{path}: render dispatches by bucket {renders} launched vwarp {launches['vwarp']} and "
+                f"hwarp {launches['hwarp']} times, not {want[0]} and {want[1]}")
+        for d, dispatches in renders.items():
+            render_rows_at(path, d, dispatches, dispatches * on_fields[d])
+
+    def render_rows_at(path, d, dispatches, on_field):
+        n, (h, w) = paths[path]["n"], paths[path]["hw"]
         errs = {"vwarp": [], "hwarp": []}
         if path == _MAIN:
             # The buckets 16, 63 and 127 and the path's own, with 3 channels
@@ -308,15 +391,11 @@ def kernel_phase(hbm: float, paths: dict):
                     errs["vwarp"].append(_check(f"vwarp {shape} d={dd} {mode}", vwarp(x, f, dd, mode), vwarp_plain(x, f, dd, mode)))
                     errs["hwarp"].append(_check(f"hwarp {shape} d={dd} {mode}", hwarp(x, f, dd, mode), hwarp_plain(x, f, dd, mode)))
                 del x, f
-        if launches["vwarp"] != paths[path]["dispatches"] or launches["hwarp"] % launches["vwarp"]:
-            raise AssertionError(
-                f"{path}: {paths[path]['dispatches']} render dispatches launched vwarp "
-                f"{launches['vwarp']} and hwarp {launches['hwarp']} times")
         cases = [
-            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", launches["vwarp"]),
+            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", dispatches),
             ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
-            ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", launches["vwarp"]),
-            ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", launches["hwarp"] - launches["vwarp"]),
+            ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", dispatches),
+            ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", on_field),
         ]
         for name, kern, plain, mode, c, kind, count in cases:
             if kind == "random" and name == "vwarp" and path != _MAIN:
@@ -353,12 +432,14 @@ def kernel_phase(hbm: float, paths: dict):
 
     # The whole-clip path first (a kernel's first row is its row of the
     # `kernels` line), then every other path at its own shapes: its pyramid
-    # levels, and its render dispatches (block length, width and bucket).
+    # levels in its dtype, its render dispatches (block length, width and
+    # buckets), and the trainer's image warps.
     for path in [_MAIN] + [p for p in paths if p != _MAIN]:
         cv_rows(path, f32_too=path == _MAIN)
         warp_rows(path)
         if path == _MAIN:
             extra_warp_checks()
+        image_warp_rows(path)
         render_rows(path)
     for row in per_shape:
         _bound(row, hbm)
@@ -473,8 +554,8 @@ def main_path(card: str):
     res = bench.measure(frames, params, cfg, iters=3, stages=True)
     _say("main path: " + json.dumps({**res, "card": card}))
     device_ms = profile(lambda: vstab_torch.stabilize(frames, params, cfg))
-    path = {"hw": (720, 1280), "n": 48, "d": res["max_disp"], "chunks": _flow_chunks(47),
-            "dispatches": 1, "launches": launches}
+    path = {"hw": (720, 1280), "n": 48, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(47),
+            "launches": launches}
     return path, device_ms, frames_np, frames, params
 
 
@@ -493,8 +574,8 @@ def affine_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
     _say("affine: " + json.dumps({
         **res, "non_border_pixels": float((out != 0).any(dim=-1).float().mean()), "card": card}))
     small_clip_check("affine")
-    return {"hw": (h, w), "n": t, "d": res["max_disp"], "chunks": _flow_chunks(t - 1),
-            "dispatches": 1, "launches": launches}
+    return {"hw": (h, w), "n": t, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(t - 1),
+            "launches": launches}
 
 
 def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
@@ -521,8 +602,8 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
         "clips": 2, "frames_per_s": 2 * t / dt, "run_s": dt, "residual_bounds_px": bounds,
         "max_disp": d, "peak_mem_gb": peak, "card": card,
     }))
-    return {"hw": (h, w), "n": t, "d": d, "chunks": 2 * _flow_chunks(t - 1),
-            "dispatches": 2, "launches": launches}
+    return {"hw": (h, w), "n": t, "renders": {d: 2}, "chunks": 2 * _flow_chunks(t - 1),
+            "launches": launches}
 
 
 class _StatsCatcher(logging.Handler):
@@ -608,8 +689,8 @@ def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card:
     profile(lambda: vstab_torch.stabilize_blocked(f32, params, cfg, block_len=block_len))
     fetch_ab(name, {"float32": f32, "uint8": u8}, params, cfg, block_len, card)
     blocks = -(-t // block_len)  # each padded to block_len pairs for the flow, one render dispatch
-    return {"hw": (h, w), "n": min(block_len, t), "d": d, "chunks": blocks * _flow_chunks(block_len),
-            "dispatches": blocks, "launches": launches}
+    return {"hw": (h, w), "n": min(block_len, t), "renders": {d: blocks}, "chunks": blocks * _flow_chunks(block_len),
+            "launches": launches}
 
 
 class _PlainFetch:
@@ -715,6 +796,8 @@ def profile(run):
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != torch.autograd.DeviceType.CUDA or ev.duration_ns() <= 0:
             continue
+        if ev.name().startswith("Optimizer."):  # torch's own annotation over an optimizer step, no kernel
+            continue
         spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
         ms, count = by_name.get(ev.name(), (0.0, 0))
         by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
@@ -777,6 +860,505 @@ def schur_check():
         raise AssertionError("Schur solve disagrees with the banded solve")
 
 
+# ---------------------------------------------------------------------------
+# Training: backward kernels, the trainer, the checkpoint, the eval sweep
+# ---------------------------------------------------------------------------
+
+_TRAIN_HW, _TRAIN_BATCH = (192, 256), 8
+# Gradient tolerances, relative to the largest value of the gradient compared:
+# f32 1e-5 (another summation order; the warp's image gradient is a sum of
+# atomic adds in an order that varies), bf16 one bf16 ulp (both sum in f32 and
+# round once).
+_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def _check_grad(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} against {tuple(want.shape)} {want.dtype}")
+    scale = float(want.float().abs().max())
+    tol = _GRAD_TOL[want.dtype] * scale
+    err = float((got.float() - want.float()).abs().max())
+    _say(f"  check {name}: shape {tuple(got.shape)} {got.dtype} max_abs_err {err:.3e} "
+         f"(tol {_GRAD_TOL[want.dtype]:g} * largest value {scale:.3e}) -> {'ok' if err <= tol else 'out'}")
+    if not err <= tol:
+        raise AssertionError(f"{name}: backward kernel disagrees")
+    return err
+
+
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def backward_kernel_phase(hbm: float):
+    """Checks and times the two backward kernels; returns (rows, per_shape) like
+    `kernel_phase`. A kernel's first row is the finest level of a training
+    step in f32 (the trainer's default dtype); launches are per training step."""
+    from vstab_torch.kernels import (
+        KERNELS_BWD, bilinear_warp, bilinear_warp_backward, bilinear_warp_backward_plain, bilinear_warp_plain,
+        cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain,
+    )
+    from vstab_torch.kernels.warp import UNBOUNDED
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    per_shape, rows = [], {}
+    levels = _level_shapes(*_TRAIN_HW, pairs=_TRAIN_BATCH)
+    hd_level = _level_shapes(720, 1280)[0]
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def cv_case(shape, dtype, r, timed, launches=0):
+        n, h, w, c = shape
+        nd = (2 * r + 1) ** 2
+        f1, f2 = randn(shape, dtype).requires_grad_(), randn(shape, dtype).requires_grad_()
+        # a ramp over the window: a transposed shift in df2 would show
+        g = (randn((n, h, w, nd), torch.float32) * torch.linspace(0.2, 1.8, nd, device="cuda")).to(dtype)
+        # Through autograd, as a training step reaches the kernel; the timed
+        # call is the backward wrapper itself, without the autograd engine's
+        # thread between the host and the launch.
+        before = KERNELS_BWD["cost_volume_bwd"].launches
+        df1, df2 = torch.autograd.grad(cost_volume(f1, f2, r), (f1, f2), g)
+        if KERNELS_BWD["cost_volume_bwd"].launches != before + 1:
+            raise AssertionError("the cost volume's backward did not launch its kernel once")
+        run = lambda: cost_volume_backward(g, f1.detach(), f2.detach(), r)
+        if not all(torch.equal(a, b) for a, b in zip(run(), (df1, df2))):
+            raise AssertionError("cost_volume_backward differs from the gradient autograd returned")
+        name = f"cost_volume_bwd {shape} {_dt(dtype)} r={r}"
+        p1, p2 = cost_volume_backward_plain(g, f1.detach(), f2.detach(), r)
+        a1, a2 = torch.autograd.grad(cost_volume_plain(f1, f2, r), (f1, f2), g)
+        err = max(_check_grad(f"{name} df1 vs plain", df1, p1), _check_grad(f"{name} df2 vs plain", df2, p2),
+                  _check_grad(f"{name} df1 vs autograd", df1, a1), _check_grad(f"{name} df2 vs autograd", df2, a2))
+        if not timed:
+            return err
+        size = f1.element_size()
+        per_shape.append(dict(
+            kernel="cost_volume_bwd", path="train", shape=list(shape) + [_dt(dtype), f"r={r}"],
+            launches=launches, max_abs_err=err, ms=_time_ms(run),
+            plain_ms=_time_ms(lambda: cost_volume_backward_plain(g, f1.detach(), f2.detach(), r), iters=5),
+            bytes=(g.numel() + 4 * f1.numel()) * size, flops=2 * n * h * w * nd * c * 2,
+            rate=_BF16_RATE if dtype == torch.bfloat16 else _F32_RATE, library_ms=None,
+        ))
+        return err
+
+    def warp_case(shape, dtype, flow_dtype, timed, launches=0, amp=7.9, max_disp=8, edges=False):
+        n, h, w, c = shape
+        img = randn(shape, dtype).requires_grad_()
+        flow = (torch.rand((n, h, w, 2), generator=gen, device="cuda") * 2 - 1) * amp
+        if edges:  # every corner block points off both of its edges
+            k = 3
+            flow[:, :k, :k], flow[:, -k:, -k:] = -amp, amp
+            flow[:, :k, -k:, 0], flow[:, :k, -k:, 1] = amp, -amp
+            flow[:, -k:, :k, 0], flow[:, -k:, :k, 1] = -amp, amp
+        flow = flow.to(flow_dtype).requires_grad_()
+        g = randn(shape, dtype)
+        before = KERNELS_BWD["bilinear_warp_bwd"].launches
+        dimg, dflow = torch.autograd.grad(bilinear_warp(img, flow, max_disp), (img, flow), g)
+        if KERNELS_BWD["bilinear_warp_bwd"].launches != before + 1:
+            raise AssertionError("the feature warp's backward did not launch its kernel once")
+        run = lambda: bilinear_warp_backward(g, img.detach(), flow.detach(), max_disp)
+        name = f"bilinear_warp_bwd {shape} {_dt(dtype)} flow {_dt(flow_dtype)} in +-{amp:g}, max_disp {max_disp}"
+        # The kernel clips the flow and passes no gradient where it did; the
+        # plain version has no clip, so it gets the clipped flow and its flow
+        # gradient is masked. Inside +-max_disp both steps change nothing.
+        fl = flow.detach().float()
+        inside = (fl.abs() <= max_disp).float()
+        clipped = fl.clamp(-max_disp, max_disp)
+        pimg, pflow = bilinear_warp_backward_plain(g, img.detach(), clipped.to(flow_dtype))
+        pflow = (pflow.float() * inside).to(flow_dtype)
+        # autograd of the plain forward on f32 copies (on bf16 leaves it would
+        # add the image gradient up in bf16), clip included
+        i32, f32 = img.detach().float().requires_grad_(), fl.clone().requires_grad_()
+        aimg, aflow = torch.autograd.grad(
+            bilinear_warp_plain(i32, f32.clamp(-max_disp, max_disp)), (i32, f32), g.float())
+        err = max(_check_grad(f"{name} dimg vs plain", dimg, pimg),
+                  _check_grad(f"{name} dimg vs autograd", dimg, aimg.to(dtype)))
+        _check_grad(f"{name} dflow vs plain", dflow, pflow)
+        _check_grad(f"{name} dflow vs autograd", dflow, aflow.to(flow_dtype))
+        share = float(inside.mean())
+        if float((dflow.float() * (1 - inside)).abs().max()) != 0.0:
+            raise AssertionError(f"{name}: a flow gradient where the flow was clipped")
+        if not timed:
+            return err, share
+        # The one library call with the same function: grid_sample's backward
+        # (bilinear, border padding, align_corners), called as an operator.
+        img_nchw = img.detach().permute(0, 3, 1, 2)
+        grid = _grid(h, w, clipped[..., 0], clipped[..., 1], dtype)
+        g_nchw = g.permute(0, 3, 1, 2)
+        library = lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g_nchw, img_nchw, grid, 0, 1, True, (True, True))
+        isz, fsz = img.element_size(), flow.element_size()
+        per_shape.append(dict(
+            kernel="bilinear_warp_bwd", path="train",
+            shape=list(shape) + [_dt(dtype), f"{_dt(flow_dtype)} flow in +-{amp:g}"],
+            launches=launches, max_abs_err=err, ms=_time_ms(run),
+            plain_ms=_time_ms(lambda: bilinear_warp_backward_plain(g, img.detach(), flow.detach()), iters=5),
+            # g, img, flow read; dimg zeroed (f32) and written; dflow written
+            bytes=2 * img.numel() * isz + 2 * flow.numel() * fsz + img.numel() * (4 + isz), flops=None,
+            library_ms=_time_ms(library),
+        ))
+        return err, share
+
+    # A training step launches each backward kernel once a level: the cost
+    # volume at five, the feature warp at the four finest. f32 rows first.
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in levels:
+            cv_case(shape, dtype, 4, timed=True, launches=1 if dtype == torch.float32 else 0)
+    cv_case(hd_level, torch.bfloat16, 4, timed=True)  # the 720p level, beside the forward's row
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in levels[:4]:
+            warp_case(shape, dtype, dtype, timed=True, launches=1 if dtype == torch.float32 else 0)
+    warp_case(hd_level, torch.bfloat16, torch.bfloat16, timed=True)
+    # Checked, not timed: channel counts off the vector widths, a smaller
+    # radius, mixed dtypes, flow off every edge, the 3-channel unclipped warp
+    # of the photometric loss, and a flow half of which the forward clips.
+    extra = {"cost_volume_bwd": [], "bilinear_warp_bwd": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        extra["cost_volume_bwd"] += [cv_case((2, 13, 20, 21), dtype, 2, timed=False),
+                                     cv_case((1, 6, 8, 196), dtype, 1, timed=False)]
+        extra["bilinear_warp_bwd"].append(warp_case((2, 19, 24, 21), dtype, dtype, timed=False, edges=True)[0])
+    extra["bilinear_warp_bwd"].append(
+        warp_case((2, 19, 24, 32), torch.bfloat16, torch.float32, timed=False, edges=True)[0])
+    extra["bilinear_warp_bwd"].append(
+        warp_case((2, 19, 24, 32), torch.float32, torch.bfloat16, timed=False, edges=True)[0])
+    extra["bilinear_warp_bwd"].append(
+        warp_case((2, 48, 64, 3), torch.float32, torch.float32, timed=False, amp=30.0, max_disp=UNBOUNDED, edges=True)[0])
+    err, share = warp_case((2, 24, 32, 64), torch.float32, torch.float32, timed=False, amp=12.0, edges=True)
+    extra["bilinear_warp_bwd"].append(err)
+    _say(f"  clipped-flow case: {share:.3f} of the flow components inside +-8, zero flow gradient outside")
+    if not 0.3 < share < 0.9:
+        raise AssertionError("the clipped-flow case clips too little or too much to show anything")
+    for row in per_shape:
+        _bound(row, hbm)
+        _say(f"  kernel {json.dumps(row)}")
+        first = rows.setdefault(row["kernel"], dict(row))
+        first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"], *extra[row["kernel"]])
+    return rows, per_shape
+
+
+def _all_launches() -> dict:
+    from vstab_torch.kernels import KERNELS, KERNELS_BWD
+
+    return {k: v.launches for k, v in {**KERNELS, **KERNELS_BWD}.items()}
+
+
+def _gradient_cross_check(params: dict, cfg, batch: dict, mode: str) -> None:
+    """Every parameter's gradient of one training loss through the kernels
+    against the same loss with the plain versions swapped in on the card
+    (the plain warp given the flow clipped as the kernel clips it): relative
+    1e-3 of each leaf's largest value. The photometric loss warps once more
+    than the network does, forward and backward. cuDNN is held to its
+    deterministic algorithms for both passes, so that they differ in the
+    kernels only and the reading repeats. A network at its random init
+    carries rounding-sized differences of the forward pass into its late
+    layers' gradients several thousand times enlarged: for scale, two plain
+    passes under cuDNN's default algorithms (which add with atomics) are
+    compared as well, and printed."""
+    import vstab_torch.flow.pwcnet as pw
+    from vstab_torch.flow import train as T
+    from vstab_torch.kernels import bilinear_warp_plain, cost_volume_plain
+
+    def grads():
+        net = T._trainable(params, cfg, torch.device("cuda"))
+        loss, _ = T.make_loss(net, mode)(batch)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in net.named_parameters()}
+
+    warps = 4 + (mode == "photometric")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    before = _all_launches()
+    loss_k, got = grads()
+    after = _all_launches()
+    used = {k: after[k] - before[k] for k in after}
+    if (used["cost_volume"], used["bilinear_warp"], used["cost_volume_bwd"], used["bilinear_warp_bwd"]) != (5, warps, 5, warps):
+        raise AssertionError(f"one {mode} forward and backward pass launched {used}")
+    kernels = (pw.cost_volume, pw.bilinear_warp, T.bilinear_warp)
+    plain_warp = lambda img, flow, max_disp: bilinear_warp_plain(img, flow.clamp(-max_disp, max_disp))
+    pw.cost_volume = lambda f1, f2, radius: cost_volume_plain(f1, f2, radius)
+    pw.bilinear_warp = T.bilinear_warp = plain_warp
+    try:
+        loss_p, want = grads()
+        torch.backends.cudnn.deterministic = False
+        plain_a, plain_b = grads()[1], grads()[1]
+    finally:
+        pw.cost_volume, pw.bilinear_warp, T.bilinear_warp = kernels
+        torch.backends.cudnn.deterministic = was
+    noise = max(float((plain_a[k] - plain_b[k]).abs().max()) / float(plain_b[k].abs().max()) for k in want)
+    if _all_launches() != after:
+        raise AssertionError("the plain pass launched a kernel")
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        worst = max(worst, err / scale)
+        if not (scale > 0 and err <= 1e-3 * scale):
+            raise AssertionError(f"gradient of {k}: max_abs_err {err:.3e}, largest value {scale:.3e}")
+    _say(f"  gradient cross-check, {mode}: {len(want)} leaves, loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), "
+         f"worst leaf error {worst:.3e} of its largest value (tol 1e-3); "
+         f"two plain passes under cuDNN's default algorithms: {noise:.3e}")
+    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError("the loss through the kernels differs from the plain one")
+
+
+def _step_breakdown(params: dict, cfg, scenes: torch.Tensor, card: str) -> None:
+    """ms a step on the device's timeline, split by CUDA events into batch
+    generation, forward (network and loss), backward and optimizer; then the
+    profiler's device time by kernel over one more step."""
+    from vstab_torch.flow import train as T
+
+    dev = torch.device("cuda")
+    net = T._trainable(params, cfg, dev)
+    opt = T.make_optimizer(net.parameters(), 2e-4)
+    loss_fn, step = T.make_loss(net, "supervised"), T.make_train_step(net, opt, "supervised")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(3):
+        step(T._sample_batch(gen, scenes, _TRAIN_BATCH, 12.0))
+    parts = {"batch": [], "forward": [], "backward": [], "optimizer": []}
+    n_steps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        marks[0].record()
+        batch = T._sample_batch(gen, scenes, _TRAIN_BATCH, 12.0)
+        marks[1].record()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(batch)
+        marks[2].record()
+        loss.backward()
+        marks[3].record()
+        opt.step()
+        marks[4].record()
+        for name, a, b in zip(parts, marks, marks[1:]):
+            parts[name].append((a, b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = {k: sum(a.elapsed_time(b) for a, b in v) / n_steps for k, v in parts.items()}
+    _say("train step: " + json.dumps({
+        "ms_per_step": wall / n_steps * 1e3, "steps_per_s": n_steps / wall, "split_ms": split,
+        "batch": _TRAIN_BATCH, "hw": list(_TRAIN_HW), "compute_dtype": cfg.compute_dtype, "card": card}))
+    _say(f"train step: profile of one more step ({card})")
+    by_name = profile(lambda: step(T._sample_batch(gen, scenes, _TRAIN_BATCH, 12.0)))
+    if by_name is None:
+        _say("backward kernels' device time in a step: not measured")
+        return
+    out = {}
+    for key in ("cost_volume_bwd_kernel", "bilinear_warp_bwd_kernel", "cost_volume_f32_kernel", "bilinear_warp_"):
+        hits = [(ms, n) for k, (ms, n) in by_name.items()
+                if key in k and (key != "bilinear_warp_" or "bwd" not in k)]
+        out[key] = {"device_ms": sum(ms for ms, _ in hits), "launches": sum(n for _, n in hits)}
+    out["all_kernels_ms"] = sum(ms for ms, _ in by_name.values())
+    _say("device time in one training step: " + json.dumps(out))
+    if out["cost_volume_bwd_kernel"]["launches"] != 5 or out["bilinear_warp_bwd_kernel"]["launches"] != 4:
+        raise AssertionError("the profiler did not see 5 and 4 launches of the backward kernels in a step")
+
+
+def _train_fast_logged(**kw):
+    """`train_fast(**kw)` and the mean metrics of its chunks, read from the
+    lines it prints (`step n/N: {...}`, values to four decimals)."""
+    from vstab_torch.flow.train import train_fast
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train_fast(**kw)
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    lines = [line for line in buf.getvalue().splitlines() if line.startswith("step ")]
+    return out, [ast.literal_eval(line.split(": ", 1)[1]) for line in lines]
+
+
+def train_phase(card: str, tmp: str) -> dict:
+    """The trainer at full width on the card; returns its path for
+    `kernel_phase`: the f32 level shapes of a batch, the batch maker's image
+    warps, and the launches of the 40-step run by kernel."""
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.flow.pwcnet import estimate_flow, init_params
+    from vstab_torch.kernels import reset_launches
+    from vstab_torch.utils.checkpoint import load_params, params_from_jax
+
+    cfg = FlowConfig(compute_dtype="float32")
+    dev = torch.device("cuda")
+    steps, n_scenes, max_disp = 40, 64, 12.0
+    t0 = time.perf_counter()
+    scenes = torch.from_numpy(T.make_scene_pool(n_scenes, *_TRAIN_HW, seed=0)).to(dev)
+    _say(f"train: {n_scenes} scenes of {_TRAIN_HW} made in {time.perf_counter() - t0:.1f} s")
+
+    # step 1: gradients through the kernels against the plain versions
+    init = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batch = T._sample_batch(torch.Generator(device=dev).manual_seed(1), scenes, _TRAIN_BATCH, max_disp)
+    _gradient_cross_check(init, cfg, batch, "supervised")
+    pair = {"im1": batch["im1"], "im2": batch["im2"]}
+    _gradient_cross_check(init, cfg, pair, "photometric")
+
+    # 40 steps through the entry point, every launch counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trained, history = _train_fast_logged(
+        cfg=cfg, steps=steps, batch_size=_TRAIN_BATCH, hw=_TRAIN_HW, seed=0, scan_len=10,
+        n_scenes=n_scenes, max_disp=max_disp, ckpt_dir=tmp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # A step: 5 cost volumes and 4 feature warps forward and as many backward;
+    # the batch's own 4 warps (the pair and three occluders) have no gradient.
+    want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+    _say("train: " + json.dumps({
+        "steps": steps, "run_s": wall, "steps_per_s_with_setup": steps / wall, "chunks": history,
+        "launches": launches, "peak_mem_gb": peak, "card": card}))
+    if launches != want:
+        raise AssertionError(f"train_fast launched {launches}, expected {want}")
+    for m in history:
+        if not all(np.isfinite(v) for v in m.values()) or set(m) != {"loss", "grad_norm", "epe_finest"}:
+            raise AssertionError(f"train: bad chunk metrics {m}")
+    # The mean loss of the last 10 steps is below that of the first 10. Every
+    # step sees a fresh batch, so the chunk means also move with the batches'
+    # difficulty (the size of their flows); ten more steps on one fixed batch,
+    # the criterion of the JAX package's own trainer tests, must bring that
+    # batch's loss down too.
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError("train: the mean loss of the last 10 steps is not below that of the first 10")
+    net = T._trainable(trained, cfg, dev)
+    fixed_step = T.make_train_step(net, T.make_optimizer(net.parameters(), 2e-4), "supervised")
+    fixed = [float(fixed_step(batch)["loss"]) for _ in range(10)]
+    _say("train: 10 more steps on one fixed batch, loss " + json.dumps(fixed))
+    if not (all(np.isfinite(fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError("train: ten steps on a fixed batch did not bring its loss down")
+    del net, fixed_step
+
+    # The photometric mode: five steps on that pair without its labels. Its
+    # loss warps the second image at the finest level (8x48x64x3, unclipped)
+    # through the kernel and sends the flow's gradient through the backward
+    # kernel: one more launch of each a step.
+    net = T._trainable(trained, cfg, dev)
+    photo_step = T.make_train_step(net, T.make_optimizer(net.parameters(), 2e-4), "photometric")
+    before = _all_launches()
+    photo = [{k: float(v) for k, v in photo_step(pair).items()} for _ in range(5)]
+    used = {k: n - before[k] for k, n in _all_launches().items()}
+    _say("train: 5 photometric steps on one fixed pair: " + json.dumps({"steps": photo, "launches": used}))
+    want_photo = {"cost_volume": 25, "bilinear_warp": 25, "vwarp": 0, "hwarp": 0,
+                  "cost_volume_bwd": 25, "bilinear_warp_bwd": 25}
+    if used != want_photo:
+        raise AssertionError(f"5 photometric steps launched {used}, expected {want_photo}")
+    if not all(np.isfinite(v) for m in photo for v in m.values()) or set(photo[0]) != {"loss", "grad_norm", "photo", "smooth"}:
+        raise AssertionError(f"train: bad photometric metrics {photo}")
+    if not photo[-1]["loss"] <= photo[0]["loss"] * 1.05:
+        raise AssertionError("train: five photometric steps on a fixed pair raised its loss")
+    del net, photo_step
+
+    _step_breakdown(init, cfg, scenes, card)
+
+    # bf16 from the same init and the same draws (the seed fixes both)
+    kw16 = dict(steps=10, batch_size=_TRAIN_BATCH, hw=_TRAIN_HW, seed=0, scan_len=10, n_scenes=n_scenes,
+                max_disp=max_disp, ckpt_dir=None)
+    h16 = [_train_fast_logged(cfg=c, **kw16)[1][0] for c in (FlowConfig(compute_dtype="bfloat16"), cfg)]
+    _say("train bf16 vs f32, 10 steps each (cosine over 10), mean metrics: " + json.dumps({"bfloat16": h16[0], "float32": h16[1]}))
+    if not all(np.isfinite(v) for v in h16[0].values()):
+        raise AssertionError("train: bf16 metrics are not finite")
+    if abs(h16[0]["loss"] - h16[1]["loss"]) > 0.05 * h16[1]["loss"]:
+        raise AssertionError("train: the bf16 loss is more than 5% from the f32 loss")
+
+    # checkpoint round trip: the saved file holds the trained tensors bit for
+    # bit and gives the same flow, to 0. cuDNN is held to its deterministic
+    # algorithms for the comparison (the transposed convolutions' default one
+    # adds with atomics: two runs on the same parameters differ in the last bit).
+    loaded = params_from_jax(load_params(os.path.join(tmp, f"flow_{steps:06d}.msgpack")))
+    loaded = {k: v.to(dev) for k, v in loaded.items()}
+    if set(loaded) != set(trained) or not all(torch.equal(loaded[k], trained[k]) for k in trained):
+        raise AssertionError("the saved checkpoint does not hold the trained parameters")
+    loose = float((estimate_flow(trained, batch["im1"], batch["im2"], cfg)
+                   - estimate_flow(trained, batch["im1"], batch["im2"], cfg)).abs().max())
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = estimate_flow(trained, batch["im1"], batch["im2"], cfg)
+        b = estimate_flow(loaded, batch["im1"], batch["im2"], cfg)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    diff = float((a - b).abs().max())
+    _say(f"checkpoint round trip: {len(loaded)} tensors equal bit for bit, flow on a fixed batch differs by {diff:g} "
+         f"(must be 0; two runs on the same parameters without the deterministic flag: {loose:g})")
+    if diff != 0.0 or not bool(torch.isfinite(a).all()):
+        raise AssertionError("the saved checkpoint does not reproduce the trained network")
+
+    # warm start from the trained checkpoint
+    ckpt = {k: v.to(dev) for k, v in params_from_jax(load_params("ckpts/flow_086000.msgpack")).items()}
+    before = T.eval_epe(ckpt, cfg, hw=_TRAIN_HW, max_disp=max_disp)
+    warm = T.train_fast(cfg, steps=20, batch_size=_TRAIN_BATCH, hw=_TRAIN_HW, seed=1, params=ckpt, scan_len=10,
+                        n_scenes=n_scenes, max_disp=max_disp, ckpt_dir=None)
+    after = T.eval_epe(warm, cfg, hw=_TRAIN_HW, max_disp=max_disp)
+    _say("warm start from flow_086000, 20 steps: " + json.dumps({
+        "eval_epe_before_px": before, "eval_epe_after_px": after, "card": card}))
+    if not (np.isfinite(before) and np.isfinite(after)):
+        raise AssertionError("eval_epe is not finite")
+    n, (h, w) = _TRAIN_BATCH, _TRAIN_HW
+    return {"hw": _TRAIN_HW, "pairs": n, "dtype": torch.float32, "chunks": steps, "launches": launches,
+            "image_warps": {(n, h, w, 3): 4 * steps}, "also_check": [(n, h // 4, w // 4, 3)]}
+
+
+def eval_phase(card: str, tmp: str) -> dict:
+    """The eval sweep on three synthetic clips, its resume, and the `eval`
+    subcommand; returns the sweep's path for `kernel_phase`: six chunks of
+    pairs and one render dispatch a clip, the dispatches by each clip's
+    bucket, and the sweep's launches."""
+    import vstab_torch
+    from vstab_torch.eval.deepstab import _load_done, report_table, run_sweep, synthetic_clip_set
+
+    path = os.path.join(tmp, "results.jsonl")
+    t, h, w = shape = (48, 256, 320)
+    kw = dict(n_synthetic=3, synth_shape=shape)
+    recs, launches, dt = _run_counted("eval sweep", lambda: run_sweep(None, path, **kw))
+
+    def check(recs, what):
+        if [r["clip"] for r in recs] != ["synthetic_000", "synthetic_001", "synthetic_dyn_002"]:
+            raise AssertionError(f"{what}: clips {[r['clip'] for r in recs]}")
+        for r in recs:
+            if not all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in ("stability", "cropping", "distortion")):
+                raise AssertionError(f"{what}: bad scores {r}")
+            if r["frames"] != 48:
+                raise AssertionError(f"{what}: {r['frames']} frames")
+
+    check(recs, "eval sweep")
+    before = _all_launches()
+    again = run_sweep(None, path, **kw)
+    if again != recs or _all_launches() != before:
+        raise AssertionError("eval sweep: the second call did not resume from the manifest")
+    _say(report_table(recs))
+    cfg = vstab_torch.Config()
+    params = vstab_torch.default_params(cfg, ckpt_dir="ckpts")
+    renders = {}
+    for _, frames in synthetic_clip_set(3, t=t, h=h, w=w):
+        d = _bucket(torch.from_numpy(frames).cuda(), params, cfg)[1]
+        renders[d] = renders.get(d, 0) + 1
+    _say("eval sweep: " + json.dumps({
+        "clips": len(recs), "run_s": dt, "records": recs, "render_dispatches_by_bucket": renders, "card": card}))
+
+    cli = os.path.join(tmp, "cli.jsonl")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vstab_torch", "eval", "--results", cli, "--n-synthetic", "3",
+         "--synth-shape", "48", "256", "320"],
+        capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    if r.returncode != 0:
+        raise AssertionError(f"the eval subcommand failed ({r.returncode}):\n{r.stderr[-3000:]}")
+    agg = json.loads(r.stdout.strip().splitlines()[-1])["aggregate"]
+    from_cli = sorted(_load_done(cli).values(), key=lambda rec: rec["clip"])
+    check(from_cli, "eval subcommand")
+    _say("eval subcommand: " + json.dumps({"aggregate": agg, "subprocess_s": time.perf_counter() - t0, "card": card}))
+    for a, b in zip(recs, from_cli):
+        if any(abs(a[k] - b[k]) > 0.02 for k in ("stability", "cropping", "distortion")):
+            raise AssertionError(f"eval subcommand: scores of {a['clip']} differ from the library call's")
+    return {"hw": (h, w), "n": t, "renders": renders, "chunks": len(recs) * _flow_chunks(t - 1), "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -819,24 +1401,45 @@ def main() -> int:
     file_phase(u8[:33], have_cv2, card)
     del u8
 
+    small_clip_check()
+    schur_check()
+    tmp = tempfile.mkdtemp(prefix="vstab_smoke_train_")
+    try:
+        paths["train_192x256"] = train_phase(card, tmp)
+        paths["eval_256x320"] = eval_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # Every path has run: each kernel against its plain version at the shapes
+    # and dtypes those runs gave it, and each path's launches held to them.
     t0 = time.perf_counter()
     rows, per_shape, floor_ms = kernel_phase(hbm, paths)
     _say(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     device_time_line(per_shape, device_ms, floor_ms)
-    small_clip_check()
-    schur_check()
+    t0 = time.perf_counter()
+    bwd_rows, _ = backward_kernel_phase(hbm)
+    _say(f"backward kernel checks: {time.perf_counter() - t0:.1f} s")
+    rows.update(bwd_rows)
+    by_path = {name: {**{k: 0 for k in _all_launches()}, **p["launches"]} for name, p in paths.items()}
 
     meta = {
         "cost_volume": ("vstab_torch/kernels/csrc/cost_volume.cu", "vstab/kernels/cost_volume.py:192"),
         "bilinear_warp": ("vstab_torch/kernels/csrc/warp.cu", "vstab/kernels/warp.py:263"),
         "vwarp": ("vstab_torch/kernels/csrc/warp1d.cu", "vstab/kernels/warp1d.py:267"),
         "hwarp": ("vstab_torch/kernels/csrc/warp1d.cu", "vstab/kernels/warp1d.py:356"),
+        # No TPU kernel behind these two: the JAX trainer differentiates the
+        # XLA formulations named here.
+        "cost_volume_bwd": ("vstab_torch/kernels/csrc/cost_volume.cu", "vstab/kernels/cost_volume.py:52"),
+        "bilinear_warp_bwd": ("vstab_torch/kernels/csrc/warp.cu", "vstab/kernels/warp.py:71"),
     }
+    # The forward kernels report the whole-clip path's launches, the backward
+    # kernels the training run's (no serving path launches them).
+    main_of = {k: "train_192x256" if k.endswith("_bwd") else _MAIN for k in meta}
     kernels = [
         {
             "name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
-            "launches": paths[_MAIN]["launches"][k],
-            "launches_by_path": {name: p["launches"][k] for name, p in paths.items()},
+            "launches": by_path[main_of[k]][k],
+            "launches_by_path": {name: p[k] for name, p in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -341,3 +341,209 @@ def test_roll_and_wrap_pad_on_the_card(cuda):
     want = _roll_and_wrap_pad(frames, mu, mv, 4)
     got = _roll_and_wrap_pad(frames.to(cuda), mu.to(cuda), mv.to(cuda), 4)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (the gradients of the cost volume and of the feature warp)
+# against the plain backward versions and against autograd of the plain
+# forward, on the card. Tolerances are relative to the largest value of the
+# gradient compared: f32 1e-5 (other summation order; the image gradient is a
+# sum of atomic adds whose order varies), bf16 one bf16 ulp (2^-7: both sum
+# in f32 and round once). `torch.autograd.gradcheck` needs f64, which the
+# kernels do not take.
+# ---------------------------------------------------------------------------
+
+
+def _assert_grad_close(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = float(want.float().abs().max())
+    tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * max(scale, 1e-30)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, f"max error {err:.3e} over {tol:.3e} (largest value {scale:.3e})"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(2, 9, 11, 3), (2, 13, 20, 21), (1, 6, 8, 196), (2, 12, 16, 32), (1, 3, 4, 196)])
+def test_cost_volume_backward_matches_plain(cuda, shape, radius, dtype):
+    from vstab_torch.kernels import KERNELS_BWD, cost_volume_backward_plain
+
+    g = torch.Generator().manual_seed(radius + shape[3])
+    f1 = torch.randn(shape, generator=g).to(cuda, dtype).requires_grad_()
+    f2 = torch.randn(shape, generator=g).to(cuda, dtype).requires_grad_()
+    # asymmetric in the window: a transposed shift in df2 would show
+    ramp = torch.linspace(0.2, 1.8, (2 * radius + 1) ** 2)
+    gout = (torch.randn(shape[:3] + ((2 * radius + 1) ** 2,), generator=g) * ramp).to(cuda, dtype)
+    reset_launches()
+    out = cost_volume(f1, f2, radius)
+    assert out.requires_grad and KERNELS["cost_volume"].launches == 1
+    df1, df2 = torch.autograd.grad(out, (f1, f2), gout)
+    assert KERNELS_BWD["cost_volume_bwd"].launches == 1
+    p1, p2 = cost_volume_backward_plain(gout, f1.detach(), f2.detach(), radius)
+    _assert_grad_close(df1, p1, dtype)
+    _assert_grad_close(df2, p2, dtype)
+    a1, a2 = torch.autograd.grad(cost_volume_plain(f1, f2, radius), (f1, f2), gout)
+    _assert_grad_close(df1, a1, dtype)
+    _assert_grad_close(df2, a2, dtype)
+
+
+def test_cost_volume_backward_one_input_and_strided_gradient(cuda):
+    from vstab_torch.kernels import KERNELS_BWD, cost_volume_backward_plain
+
+    g = torch.Generator().manual_seed(3)
+    f1 = torch.randn((2, 10, 12, 16), generator=g).to(cuda)
+    f2 = torch.randn((2, 10, 12, 16), generator=g).to(cuda).requires_grad_()
+    gout = torch.randn((2, 10, 12, 81 + 7), generator=g).to(cuda)[..., 3:84]  # strided
+    assert not gout.is_contiguous()
+    reset_launches()
+    (df2,) = torch.autograd.grad(cost_volume(f1, f2, 4), (f2,), gout)
+    assert KERNELS_BWD["cost_volume_bwd"].launches == 1
+    _assert_grad_close(df2, cost_volume_backward_plain(gout, f1, f2.detach(), 4)[1], torch.float32)
+    f1.requires_grad_()
+    (df1,) = torch.autograd.grad(cost_volume(f1, f2.detach(), 4), (f1,), gout)
+    _assert_grad_close(df1, cost_volume_backward_plain(gout, f1.detach(), f2.detach(), 4)[0], torch.float32)
+    with torch.no_grad():  # no graph, the bare forward launch
+        assert not cost_volume(f1, f2, 4).requires_grad
+    # the backward wrapper called directly: the same kernel, the same bits
+    from vstab_torch.kernels import cost_volume_backward
+
+    only1, none2 = cost_volume_backward(gout.contiguous(), f1.detach(), f2.detach(), 4, need=(True, False))
+    assert none2 is None and torch.equal(only1, df1)
+    with pytest.raises(ValueError):
+        cost_volume_backward(gout, f1.detach(), f2.detach(), 4)  # strided g: the Function makes it contiguous
+    with pytest.raises(ValueError):
+        cost_volume_backward(gout.contiguous(), f1.detach(), f2.detach(), 3)  # g is not a radius-3 volume
+
+
+# Flow inside +-8 so that the kernel's clip is not in play (the plain version
+# has none), pointing off every edge in the corners; all four dtype pairs.
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 21, 32, 96])
+def test_bilinear_warp_backward_matches_plain(cuda, c, dtype, flow_dtype):
+    from vstab_torch.kernels import KERNELS_BWD, bilinear_warp_backward_plain
+
+    g = torch.Generator().manual_seed(c)
+    n, h, w = 2, 19, 24
+    img = torch.randn((n, h, w, c), generator=g).to(cuda, dtype).requires_grad_()
+    flow = (_edge_flow(g, n, h, w) * (7.9 / 12)).clamp(-7.9, 7.9).to(cuda, flow_dtype).requires_grad_()
+    gout = torch.randn((n, h, w, c), generator=g).to(cuda, dtype)
+    reset_launches()
+    out = bilinear_warp(img, flow, 8)
+    dimg, dflow = torch.autograd.grad(out, (img, flow), gout)
+    assert KERNELS["bilinear_warp"].launches == 1 and KERNELS_BWD["bilinear_warp_bwd"].launches == 1
+    pimg, pflow = bilinear_warp_backward_plain(gout, img.detach(), flow.detach())
+    _assert_grad_close(dimg, pimg, dtype)
+    _assert_grad_close(dflow, pflow, flow_dtype)
+    # autograd of the plain forward on f32 copies of the same values: on bf16
+    # leaves autograd would add the image gradient up in bf16
+    img32, flow32 = img.detach().float().requires_grad_(), flow.detach().float().requires_grad_()
+    aimg, aflow = torch.autograd.grad(bilinear_warp_plain(img32, flow32), (img32, flow32), gout.float())
+    _assert_grad_close(dimg, aimg.to(dtype), dtype)
+    _assert_grad_close(dflow, aflow.to(flow_dtype), flow_dtype)
+
+
+def test_bilinear_warp_backward_is_zero_where_the_flow_was_clipped(cuda):
+    from vstab_torch.kernels import bilinear_warp_backward_plain
+
+    g = torch.Generator().manual_seed(5)
+    img = torch.randn((2, 19, 24, 32), generator=g).to(cuda).requires_grad_()
+    flow = _edge_flow(g, 2, 19, 24).to(cuda).requires_grad_()  # +-12: much of it clipped
+    gout = torch.randn((2, 19, 24, 32), generator=g).to(cuda)
+    dimg, dflow = torch.autograd.grad(bilinear_warp(img, flow, 8), (img, flow), gout)
+    inside = (flow.detach().abs() <= 8).float()
+    assert 0.2 < float(inside.mean()) < 0.95
+    pimg, pflow = bilinear_warp_backward_plain(gout, img.detach(), flow.detach().clamp(-8, 8))
+    _assert_grad_close(dimg, pimg, torch.float32)
+    _assert_grad_close(dflow, pflow * inside, torch.float32)
+    assert float((dflow * (1 - inside)).abs().max()) == 0.0
+
+
+def test_bilinear_warp_unbounded_is_the_plain_warp(cuda):
+    from vstab_torch.kernels.warp import UNBOUNDED
+
+    g = torch.Generator().manual_seed(6)
+    img = torch.rand((2, 33, 47, 3), generator=g).to(cuda)
+    flow = (torch.rand((2, 33, 47, 2), generator=g) * 60 - 30).to(cuda)
+    torch.testing.assert_close(
+        bilinear_warp(img, flow, UNBOUNDED), bilinear_warp_plain(img, flow), rtol=0, atol=1e-5
+    )
+
+
+def test_bilinear_warp_backward_flow_only(cuda):
+    """The photometric loss's warp: a constant image, the gradient to the flow."""
+    from vstab_torch.kernels import bilinear_warp_backward_plain
+    from vstab_torch.kernels.warp import UNBOUNDED
+
+    g = torch.Generator().manual_seed(7)
+    img = torch.rand((2, 16, 24, 3), generator=g).to(cuda)
+    flow = (torch.rand((2, 16, 24, 2), generator=g) * 30 - 15).to(cuda).requires_grad_()
+    gout = torch.randn((2, 16, 24, 3), generator=g).to(cuda)
+    (dflow,) = torch.autograd.grad(bilinear_warp(img, flow, UNBOUNDED), (flow,), gout)
+    _assert_grad_close(dflow, bilinear_warp_backward_plain(gout, img, flow.detach())[1], torch.float32)
+    from vstab_torch.kernels import bilinear_warp_backward
+
+    none_img, direct = bilinear_warp_backward(gout, img, flow.detach(), UNBOUNDED, need=(False, True))
+    assert none_img is None and torch.equal(direct, dflow)  # no atomics on this side: the same bits
+    with pytest.raises(TypeError):
+        bilinear_warp_backward(gout.bfloat16(), img, flow.detach())  # g must have the image's dtype
+
+
+# The trainer on the card with a tiny network in f32: the steps go through
+# the forward and backward kernels (two estimated levels: 2 cost volumes and 1
+# feature warp a pass; the photometric loss adds its own unclipped warp, whose
+# backward gives the flow's gradient only), the loss of a fixed batch falls,
+# and the first step's loss equals the CPU run's of the plain versions.
+@pytest.mark.parametrize("mode", ["supervised", "photometric"])
+def test_train_steps_on_the_card_go_through_the_kernels(cuda, mode):
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.flow.pwcnet import init_params
+    from vstab_torch.kernels import KERNELS_BWD
+
+    cfg = FlowConfig(
+        pyramid_channels=(8, 16, 24), estimator_channels=(16, 16), context_dilations=(1, 2, 1),
+        search_radius=2, compute_dtype="float32", output_level=2,
+    )
+    params = init_params(0, cfg, "cpu")
+    batch = T.synthetic_batch(torch.Generator().manual_seed(1), 2, 64, 64, max_disp=2.0)
+    if mode == "photometric":
+        batch = {"im1": batch["im1"], "im2": batch["im2"]}
+    want = float(T.make_loss(T._trainable(params, cfg, torch.device("cpu")), mode)(batch)[0].detach())
+
+    net = T._trainable(params, cfg, cuda)
+    opt = T.make_optimizer(net.parameters(), lr=3e-4)
+    step = T.make_train_step(net, opt, mode)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    reset_launches()
+    losses = [float(step(on_card)["loss"]) for _ in range(8)]
+    extra = 1 if mode == "photometric" else 0
+    assert KERNELS["cost_volume"].launches == 8 * 2 and KERNELS_BWD["cost_volume_bwd"].launches == 8 * 2
+    assert KERNELS["bilinear_warp"].launches == 8 * (1 + extra)
+    assert KERNELS_BWD["bilinear_warp_bwd"].launches == 8 * (1 + extra)
+    assert KERNELS["vwarp"].launches == KERNELS["hwarp"].launches == 0
+    assert abs(losses[0] - want) <= 1e-4 * abs(want)
+    assert all(l == l for l in losses) and losses[-1] < losses[0]
+    assert bool(torch.isfinite(opt.grad_norm))
+
+
+def test_train_entry_points_run_on_the_card(cuda, tmp_path, capsys):
+    """`train` (host-made scenes) and the module's command line (`train_fast`
+    and the two `eval_epe` gates), a few steps each at a small size."""
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.utils.checkpoint import load_params, params_from_jax
+
+    cfg = FlowConfig(
+        pyramid_channels=(8, 16, 24), estimator_channels=(16, 16), context_dilations=(1, 2, 1),
+        search_radius=2, compute_dtype="float32", output_level=2,
+    )
+    p = T.train(cfg, steps=3, batch_size=2, hw=(64, 64), log_every=1, ckpt_dir=str(tmp_path), mode="photometric")
+    assert all(v.is_cuda for v in p.values()) and "step 2:" in capsys.readouterr().out
+    back = params_from_jax(load_params(str(tmp_path / "flow_000003.msgpack")))
+    assert all(torch.equal(back[k], p[k].cpu()) for k in p)
+    assert T._main(["--steps", "4", "--scan-len", "2", "--batch", "2", "--hw", "64", "64", "--n-scenes", "4",
+                    "--ckpt-dir", str(tmp_path / "full")]) == 0
+    out = capsys.readouterr().out
+    assert "step 4/4" in out and "held-out EPE [in-dist]" in out and "held-out EPE [cross-dist]" in out
+    assert (tmp_path / "full" / "flow_000004.msgpack").exists()

@@ -1,6 +1,7 @@
 """Command-line interface of the port, the counterpart of `vstab/cli.py`.
 
   python -m vstab_torch stabilize in.mp4 out.mp4 [--config cfg.json] [--crop auto]
+  python -m vstab_torch eval [--dataset DIR] [--results results.jsonl] [--n-synthetic 8]
   python -m vstab_torch bench [--frames 48 --height 720 --width 1280]
 
 A thin shell over the library: config JSON round-trips through
@@ -93,6 +94,25 @@ def cmd_stabilize(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    from vstab_torch.eval.deepstab import aggregate, report_table, run_sweep
+
+    results = run_sweep(
+        args.dataset,
+        args.results,
+        cfg=_load_config(args),
+        n_synthetic=args.n_synthetic,
+        max_frames=args.max_frames,
+        synth_shape=tuple(args.synth_shape),
+        data_parallel=args.data_parallel,
+        save_videos_dir=args.save_videos,
+        device=args.device,
+    )
+    print(report_table(results))
+    print(json.dumps({"aggregate": aggregate(results)}))
+    return 0
+
+
 def main(argv=None) -> int:
     from vstab_torch import bench
 
@@ -122,6 +142,30 @@ def main(argv=None) -> int:
                     help="disable the <out>.resume/ block-level checkpoint "
                     "of the streaming path")
     sp.set_defaults(fn=cmd_stabilize)
+
+    ep = sub.add_parser("eval", help="metric sweep over a dataset")
+    ep.add_argument("--dataset", default=None,
+                    help="DeepStab-layout dir; synthetic fallback if unset")
+    ep.add_argument("--results", default="results.jsonl")
+    ep.add_argument("--config", help="config JSON")
+    ep.add_argument("--preset")
+    ep.add_argument("--crop", choices=["fixed", "auto", "none"])
+    ep.add_argument("--method", choices=["affine", "sparse_ls"])
+    ep.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain versions")
+    ep.add_argument("--n-synthetic", type=int, default=8)
+    ep.add_argument(
+        "--synth-shape", type=int, nargs=3, default=(48, 256, 320),
+        metavar=("T", "H", "W"),
+        help="synthetic-fallback clip shape (contract-scale sweeps: "
+        "48 720 1280 / 48 1080 1920)",
+    )
+    ep.add_argument("--max-frames", type=int, default=None)
+    ep.add_argument("--data-parallel", action="store_true",
+                    help="batch same-shape clips through stabilize_batch, one "
+                    "device's worth (one clip) at a time; nothing is sharded")
+    ep.add_argument("--save-videos", default=None)
+    ep.set_defaults(fn=cmd_eval)
 
     bp = sub.add_parser("bench", help="throughput of stabilize on the card (vstab_torch/bench.py)")
     bench.add_arguments(bp)

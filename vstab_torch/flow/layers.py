@@ -26,10 +26,10 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> None:
     # flax's default kernel init: truncated normal with variance 1/fan_in.
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std)
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
 def _same_pads(size: int, k: int, stride: int, dilation: int):
@@ -48,7 +48,14 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k, device=device))
         self.bias = nn.Parameter(torch.zeros(cout, device=device))
         if self.weight.device.type != "meta":
-            _lecun_normal_(self.weight.data, cin * k * k)
+            self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's defaults: lecun-normal kernel, zero bias."""
+        cout, cin, k, _ = self.weight.shape
+        with torch.no_grad():
+            _lecun_normal_(self.weight, cin * k * k, generator)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
@@ -80,7 +87,12 @@ class ConvTranspose(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, cout, 4, 4, device=device))
         self.bias = nn.Parameter(torch.zeros(cout, device=device))
         if self.weight.device.type != "meta":
-            _lecun_normal_(self.weight.data, cin * 16)
+            self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            _lecun_normal_(self.weight, self.weight.shape[0] * 16, generator)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose2d(

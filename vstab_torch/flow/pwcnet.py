@@ -6,7 +6,10 @@ upsampled x2**output_level to the input resolution with bilinear,
 half-pixel (`align_corners=False`) sampling, as `jax.image.resize` does.
 
 The feature warp and the cost volume go through `vstab_torch.kernels`: the
-CUDA kernels for CUDA tensors, the plain versions for CPU tensors.
+CUDA kernels for CUDA tensors, the plain versions for CPU tensors. `forward`
+is differentiable on both: on CUDA the two wrappers route through their
+`torch.autograd.Function`s (backward kernels of the same sources), on the
+CPU autograd differentiates the plain versions. `estimate_flow*` run without a graph.
 
 `params` everywhere is the port's state dict (`vstab_torch.utils.
 checkpoint.params_from_jax`, or `PWCNet(cfg).state_dict()`).
@@ -14,7 +17,7 @@ checkpoint.params_from_jax`, or `PWCNet(cfg).state_dict()`).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -25,7 +28,7 @@ from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.flow.context import ContextNet
 from vstab_torch.flow.encoder import FeaturePyramid
 from vstab_torch.flow.estimator import FlowEstimator, UpBlock
-from vstab_torch.flow.layers import leaky
+from vstab_torch.flow.layers import Conv, ConvTranspose, leaky
 from vstab_torch.kernels import bilinear_warp, cost_volume
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -120,6 +123,24 @@ def build_net(params: Mapping[str, torch.Tensor], cfg: FlowConfig) -> PWCNet:
     return net.eval()
 
 
+def init_params(
+    seed: Union[int, torch.Generator], cfg: FlowConfig, device=None
+) -> Dict[str, torch.Tensor]:
+    """A fresh state dict of `PWCNet(cfg)` on `device` (CUDA unless told
+    otherwise): flax's default initialisers, drawn layer by layer from
+    `seed`, an integer or a `torch.Generator` that lies on the device. The
+    numbers are torch's, not those of the JAX package's `init_params`."""
+    from vstab_torch.pipeline import resolve_device
+
+    dev = resolve_device(device)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=dev).manual_seed(seed)
+    net = PWCNet(cfg, device="meta").to_empty(device=dev)
+    for m in net.modules():
+        if isinstance(m, (Conv, ConvTranspose)):
+            m.reset_parameters(gen)
+    return {k: v.detach() for k, v in net.state_dict().items()}
+
+
 def pad_to_multiple(x: torch.Tensor, mult: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """Edge-pad H, W (axes 1, 2) of [N,H,W,C] up to a multiple of `mult`."""
     h, w = x.shape[1], x.shape[2]
@@ -163,5 +184,6 @@ __all__ = [
     "compute_dtype",
     "estimate_flow",
     "estimate_flow_pairs",
+    "init_params",
     "pad_to_multiple",
 ]

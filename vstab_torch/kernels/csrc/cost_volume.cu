@@ -53,6 +53,9 @@
 // leave as 2-byte stores) or in coalesced 4-byte stores (f32).
 // The TPU kernel's lane rolls and channels-on-sublanes relayout are not
 // carried over.
+//
+// The gradient with respect to f1 and f2 (cost_volume_bwd_kernel, for
+// training) is at the end of the file, with its own header.
 #include "common.cuh"
 
 namespace {
@@ -416,6 +419,147 @@ int launch(const void* f1, const void* f2, void* out, int n, int h, int w, int c
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ backward pass
+//
+// Gradient of the cost volume with respect to f1 and f2, given g = dL/dout.
+// No TPU counterpart: the JAX trainer differentiates the XLA formulation.
+//   df1[n,y,x,c]  = (1/C) sum_d g[n,y,x,k(d)]       * f2[n,y+dy,x+dx,c]
+//   df2[n,y,x,c]  = (1/C) sum_d g[n,y-dy,x-dx,k(d)] * f1[n,y-dy,x-dx,c]
+// over d = (dy,dx) in [-R,R]^2, terms whose source pixel lies outside the
+// image dropped (the forward's zero halo). Both are gathers, so no atomics:
+// a thread owns V consecutive channels of one output pixel, walks the
+// (2R+1)^2 displacements, reads one g value (the threads of a pixel read the
+// same address: a broadcast) and one V-wide vector of the other feature map,
+// and keeps V sums in f32 registers. Products and sums in f32, one rounding
+// to the feature dtype. Bound on the H100: bytes (g, f1, f2 read once, df1,
+// df2 written once); every neighbour vector is read (2R+1)^2 times, which
+// the L1 and the L2 serve. V is the widest vector that C and the addresses
+// allow: 8 bf16 or 4 f32 (16 bytes), 4 bf16 (8 bytes), else 1.
+// One launch computes both gradients (blockIdx.y picks which) or one of them.
+
+template <typename T, int V>
+struct Vec;
+template <>
+struct Vec<float, 1> { typedef float type; };
+template <>
+struct Vec<float, 4> { typedef float4 type; };
+template <>
+struct Vec<bf16, 1> { typedef bf16 type; };
+template <>
+struct Vec<bf16, 4> { typedef uint2 type; };
+template <>
+struct Vec<bf16, 8> { typedef uint4 type; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float* f) {
+  typedef typename Vec<T, V>::type VT;
+  const VT raw = __ldg(reinterpret_cast<const VT*>(p));
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < V; ++k) f[k] = vstab::to_f(e[k]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float* f) {
+  typedef typename Vec<T, V>::type VT;
+  VT raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < V; ++k) e[k] = vstab::from_f<T>(f[k]);
+  *reinterpret_cast<VT*>(p) = raw;
+}
+
+// total = n*h*w*(c/V) threads of work for each gradient. first = 0 when
+// blockIdx.y == 0 computes df1, 1 when it computes df2.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+cost_volume_bwd_kernel(const T* __restrict__ g, const T* __restrict__ f1,
+                       const T* __restrict__ f2, T* __restrict__ df1,
+                       T* __restrict__ df2, int64_t total, int h, int w, int c, int r,
+                       float inv_c, int first) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const bool wrt_f2 = (first + (int)blockIdx.y) != 0;
+  const int cv = c / V;
+  const int64_t p = i / cv;  // pixel index over n, y, x
+  const int ch = (int)(i - p * cv) * V;
+  const int64_t q = p / w;
+  const int x = (int)(p - q * w);
+  const int n = (int)(q / h);
+  const int y = (int)(q - (int64_t)n * h);
+  const int s = 2 * r + 1, nd = s * s;
+  const int64_t frame = (int64_t)n * h * w;
+  const T* other = wrt_f2 ? f1 : f2;
+  // df1 pairs g at this pixel with f2 at +d; df2 pairs g and f1 at -d.
+  const int sign = wrt_f2 ? -1 : 1;
+
+  float acc[V], v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  for (int dyi = 0; dyi < s; ++dyi) {
+    const int yy = y + sign * (dyi - r);
+    if (yy < 0 || yy >= h) continue;
+    for (int dxi = 0; dxi < s; ++dxi) {
+      const int xx = x + sign * (dxi - r);
+      if (xx < 0 || xx >= w) continue;
+      const int64_t src = frame + (int64_t)yy * w + xx;
+      const float gv = vstab::to_f(g[(wrt_f2 ? src : p) * nd + dyi * s + dxi]);
+      load_vec<T, V>(other + src * c + ch, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = fmaf(gv, v[k], acc[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] *= inv_c;
+  store_vec<T, V>((wrt_f2 ? df2 : df1) + p * c + ch, acc);
+}
+
+template <typename T, int V>
+int launch_bwd_v(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h,
+                 int w, int c, int r, cudaStream_t stream) {
+  const int64_t total = (int64_t)n * h * w * (c / V);
+  const int threads = 256;
+  const int64_t blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int count = (df1 != nullptr) + (df2 != nullptr);
+  if (count == 0 || blocks == 0) return 0;
+  const dim3 grid((unsigned)blocks, (unsigned)count);
+  cost_volume_bwd_kernel<T, V><<<grid, threads, 0, stream>>>(
+      g, f1, f2, df1, df2, total, h, w, c, r, 1.f / (float)c, df1 == nullptr ? 1 : 0);
+  return vstab::launch_status();
+}
+
+inline bool all_aligned(size_t bytes, const void* a, const void* b, const void* c,
+                        const void* d) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d);
+  return bits % bytes == 0;  // a null pointer is aligned to anything
+}
+
+int launch_bwd(const void* g, const void* f1, const void* f2, void* df1, void* df2, int n,
+               int h, int w, int c, int r, int dtype, cudaStream_t stream) {
+  if (r < 1 || r > 4) return (int)cudaErrorInvalidValue;
+  if (dtype == VSTAB_F32) {
+    const float *g_ = static_cast<const float*>(g), *a = static_cast<const float*>(f1),
+                *b = static_cast<const float*>(f2);
+    float *da = static_cast<float*>(df1), *db = static_cast<float*>(df2);
+    if (c % 4 == 0 && all_aligned(16, a, b, da, db))
+      return launch_bwd_v<float, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
+    return launch_bwd_v<float, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
+  }
+  if (dtype == VSTAB_BF16) {
+    const bf16 *g_ = static_cast<const bf16*>(g), *a = static_cast<const bf16*>(f1),
+               *b = static_cast<const bf16*>(f2);
+    bf16 *da = static_cast<bf16*>(df1), *db = static_cast<bf16*>(df2);
+    if (c % 8 == 0 && all_aligned(16, a, b, da, db))
+      return launch_bwd_v<bf16, 8>(g_, a, b, da, db, n, h, w, c, r, stream);
+    if (c % 4 == 0 && all_aligned(8, a, b, da, db))
+      return launch_bwd_v<bf16, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
+    return launch_bwd_v<bf16, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // f1, f2: [n,h,w,c] contiguous; out: [n,h,w,(2r+1)^2]; dtype VSTAB_F32 or
@@ -431,4 +575,13 @@ extern "C" int vstab_cost_volume(const void* f1, const void* f2, void* out,
     case 4: return launch<4>(f1, f2, out, n, h, w, c, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// g: [n,h,w,(2r+1)^2]; f1, f2: [n,h,w,c]; df1, df2: [n,h,w,c] or null for a
+// gradient that is not wanted; all contiguous and of the one dtype.
+extern "C" int vstab_cost_volume_bwd(const void* g, const void* f1, const void* f2,
+                                     void* df1, void* df2, int n, int h, int w, int c,
+                                     int r, int dtype, void* stream) {
+  return launch_bwd(g, f1, f2, df1, df2, n, h, w, c, r, dtype,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,10 @@
 //   - bilinear_warp_element_kernel, one thread per output element with a
 //     64-bit flat index, for everything else (C = 3 or 5 or 20, a view that
 //     starts mid-storage).
+//
+// The gradient with respect to the image and the flow
+// (bilinear_warp_bwd_kernel, for training) is at the end of the file, with
+// its own header.
 #include "common.cuh"
 
 namespace {
@@ -215,6 +219,103 @@ int launch(const void* img_, const void* flow_, void* out_, int n, int h, int w,
   }
 }
 
+// ------------------------------------------------------------ backward pass
+//
+// Gradient of the warp with respect to the image and the flow, given
+// g = dL/dout. No TPU counterpart: the JAX trainer differentiates the XLA
+// formulation (which does not clip the flow).
+//   dimg: every output pixel adds g * w_k to its four clamped taps: a
+//     scatter, done with f32 atomic adds (red.global.add.f32) into a zeroed
+//     f32 buffer, whatever the image dtype; the caller rounds it once.
+//   dflow[...,0] = sum_c g_c * ((1-fy)*(I01-I00) + fy*(I11-I10))
+//   dflow[...,1] = sum_c g_c * ((1-fx)*(I10-I00) + fx*(I11-I01))
+//     with the clamped taps (two taps clamped onto one pixel differ by zero),
+//     and zero where the flow component lay outside +-max_disp: the
+//     derivative of the forward's clip. floor() passes no gradient.
+// A group of lanes (a power of two up to 32, the least that covers C) owns a
+// pixel: lane l takes channels l, l+group, ..., so neighbouring lanes read
+// and add to neighbouring addresses, and the group's partial flow sums meet
+// in a shuffle reduction. Bound on the H100: bytes (g, img, flow read, dimg
+// zeroed and written, dflow written). The order of the atomic adds varies
+// from run to run, so dimg agrees with a sequential sum only to f32 rounding.
+template <typename T, typename TF>
+__global__ void __launch_bounds__(256)
+bilinear_warp_bwd_kernel(const T* __restrict__ g, const T* __restrict__ img,
+                         const TF* __restrict__ flow, float* __restrict__ dimg,
+                         TF* __restrict__ dflow, int64_t pixels, int h, int w, int c,
+                         float max_disp, int group) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t p = t / group;
+  const int lane = (int)(t - p * group);
+  const bool valid = p < pixels;  // no early return: every lane joins the shuffles
+  float du = 0.f, dv = 0.f, fu = 0.f, fv = 0.f;
+  if (valid) {
+    const int64_t q = p / w;
+    const int x = (int)(p - q * w);
+    const int n = (int)(q / h);
+    const int y = (int)(q - (int64_t)n * h);
+    fu = vstab::to_f(flow[2 * p]);
+    fv = vstab::to_f(flow[2 * p + 1]);
+    const float sx = (float)x + vstab::clamp_f(fu, max_disp);
+    const float sy = (float)y + vstab::clamp_f(fv, max_disp);
+    const float x0f = floorf(sx), y0f = floorf(sy);
+    const float fx = sx - x0f, fy = sy - y0f;
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int xa = vstab::clamp_i(x0, 0, w - 1), xb = vstab::clamp_i(x0 + 1, 0, w - 1);
+    const int ya = vstab::clamp_i(y0, 0, h - 1), yb = vstab::clamp_i(y0 + 1, 0, h - 1);
+    const int64_t frame = (int64_t)n * h * w * c;
+    const int64_t o00 = frame + ((int64_t)ya * w + xa) * c;
+    const int64_t o01 = frame + ((int64_t)ya * w + xb) * c;
+    const int64_t o10 = frame + ((int64_t)yb * w + xa) * c;
+    const int64_t o11 = frame + ((int64_t)yb * w + xb) * c;
+    const float w00 = (1.f - fx) * (1.f - fy);
+    const float w01 = fx * (1.f - fy);
+    const float w10 = (1.f - fx) * fy;
+    const float w11 = fx * fy;
+    for (int ch = lane; ch < c; ch += group) {
+      const float gv = vstab::to_f(g[p * c + ch]);
+      if (dimg != nullptr) {
+        atomicAdd(dimg + o00 + ch, gv * w00);
+        atomicAdd(dimg + o01 + ch, gv * w01);
+        atomicAdd(dimg + o10 + ch, gv * w10);
+        atomicAdd(dimg + o11 + ch, gv * w11);
+      }
+      if (dflow != nullptr) {
+        const float t00 = vstab::to_f(img[o00 + ch]), t01 = vstab::to_f(img[o01 + ch]);
+        const float t10 = vstab::to_f(img[o10 + ch]), t11 = vstab::to_f(img[o11 + ch]);
+        du += gv * ((1.f - fy) * (t01 - t00) + fy * (t11 - t10));
+        dv += gv * ((1.f - fx) * (t10 - t00) + fx * (t11 - t01));
+      }
+    }
+  }
+  if (dflow != nullptr) {
+    for (int off = group >> 1; off > 0; off >>= 1) {
+      du += __shfl_xor_sync(0xffffffffu, du, off);
+      dv += __shfl_xor_sync(0xffffffffu, dv, off);
+    }
+    if (valid && lane == 0) {
+      dflow[2 * p] = vstab::from_f<TF>(fabsf(fu) <= max_disp ? du : 0.f);
+      dflow[2 * p + 1] = vstab::from_f<TF>(fabsf(fv) <= max_disp ? dv : 0.f);
+    }
+  }
+}
+
+template <typename T, typename TF>
+int launch_bwd(const void* g, const void* img, const void* flow, float* dimg, void* dflow,
+               int n, int h, int w, int c, float max_disp, cudaStream_t stream) {
+  int group = 1;
+  while (group < c && group < 32) group <<= 1;
+  const int64_t pixels = (int64_t)n * h * w;
+  const int threads = 256;
+  const int64_t blocks = (pixels * group + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0 || (dimg == nullptr && dflow == nullptr)) return 0;
+  bilinear_warp_bwd_kernel<T, TF><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(img), static_cast<const TF*>(flow),
+      dimg, static_cast<TF*>(dflow), pixels, h, w, c, max_disp, group);
+  return vstab::launch_status();
+}
+
 }  // namespace
 
 // img, out: [n,h,w,c] of img_dtype; flow: [n,h,w,2] of flow_dtype; all
@@ -231,5 +332,25 @@ extern "C" int vstab_bilinear_warp(const void* img, const void* flow, void* out,
     return launch<float, __nv_bfloat16>(img, flow, out, n, h, w, c, max_disp, s);
   if (img_dtype == VSTAB_F32 && flow_dtype == VSTAB_F32)
     return launch<float, float>(img, flow, out, n, h, w, c, max_disp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g, img: [n,h,w,c] of img_dtype; flow: [n,h,w,2] of flow_dtype; dimg:
+// [n,h,w,c] f32, zeroed by the caller, or null; dflow: [n,h,w,2] of
+// flow_dtype, or null; all contiguous.
+extern "C" int vstab_bilinear_warp_bwd(const void* g, const void* img, const void* flow,
+                                       void* dimg, void* dflow, int n, int h, int w, int c,
+                                       float max_disp, int img_dtype, int flow_dtype,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* di = static_cast<float*>(dimg);
+  if (img_dtype == VSTAB_BF16 && flow_dtype == VSTAB_BF16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(g, img, flow, di, dflow, n, h, w, c, max_disp, s);
+  if (img_dtype == VSTAB_BF16 && flow_dtype == VSTAB_F32)
+    return launch_bwd<__nv_bfloat16, float>(g, img, flow, di, dflow, n, h, w, c, max_disp, s);
+  if (img_dtype == VSTAB_F32 && flow_dtype == VSTAB_BF16)
+    return launch_bwd<float, __nv_bfloat16>(g, img, flow, di, dflow, n, h, w, c, max_disp, s);
+  if (img_dtype == VSTAB_F32 && flow_dtype == VSTAB_F32)
+    return launch_bwd<float, float>(g, img, flow, di, dflow, n, h, w, c, max_disp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-"""Flow-network checkpoints of the JAX package, read without flax or msgpack.
+"""Flow-network checkpoints of the JAX package, read and written without flax
+or msgpack.
 
 `load_params(path)` decodes the flax msgpack file with a small decoder of its
 own (maps, strings, binaries, arrays, integers, floats, booleans, nil and
@@ -8,7 +9,10 @@ as ext type 1 whose payload is itself msgpack: `[shape, dtype name, raw
 C-order bytes]`.
 
 `params_from_jax(tree)` turns that nested dict (or the JAX package's own
-parameters, converted leaf by leaf to numpy) into the port's state dict.
+parameters, converted leaf by leaf to numpy) into the port's state dict;
+`params_to_jax(state_dict)` is its exact inverse, and `save_params(path,
+tree)` writes the bytes `flax.serialization.to_bytes(tree)` would, so a
+checkpoint trained by the port loads in the JAX package and in `load_params`.
 """
 
 from __future__ import annotations
@@ -120,6 +124,67 @@ def load_params(path: str) -> Dict[str, Any]:
     return tree
 
 
+def _pack_uint(n: int) -> bytes:
+    if n <= 0x7F:
+        return struct.pack(">B", n)
+    for limit, code, fmt in ((0xFF, 0xCC, ">B"), (0xFFFF, 0xCD, ">H"), (0xFFFFFFFF, 0xCE, ">I")):
+        if n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b"\xcf" + struct.pack(">Q", n)
+
+
+def _pack_header(n: int, fix: Optional[Tuple[int, int]], codes: Tuple[int, ...]) -> bytes:
+    """Length header: a fix form (first byte | n) up to its limit, then the
+    8-, 16- or 32-bit forms in `codes` (None where msgpack has no 8-bit form)."""
+    if fix is not None and n <= fix[1]:
+        return bytes([fix[0] | n])
+    for code, limit, fmt in zip(codes, (0xFF, 0xFFFF, 0xFFFFFFFF), (">B", ">H", ">I")):
+        if code is not None and n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack_str(s: str) -> bytes:
+    raw = s.encode("utf-8")
+    return _pack_header(len(raw), (0xA0, 31), (0xD9, 0xDA, 0xDB)) + raw
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    """flax's ext type 1: msgpack of [shape, dtype name, raw C-order bytes]."""
+    raw = arr.tobytes("C")
+    payload = (
+        b"\x93"
+        + _pack_header(arr.ndim, (0x90, 15), (None, 0xDC, 0xDD))
+        + b"".join(_pack_uint(int(d)) for d in arr.shape)
+        + _pack_str(arr.dtype.name)
+        + _pack_header(len(raw), None, (0xC4, 0xC5, 0xC6)) + raw
+    )
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        head = bytes([fixext[len(payload)]])
+    else:
+        head = _pack_header(len(payload), None, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", _EXT_NDARRAY) + payload
+
+
+def _pack_tree(tree: Any) -> bytes:
+    if isinstance(tree, Mapping):
+        out = [_pack_header(len(tree), (0x80, 15), (None, 0xDE, 0xDF))]
+        for k, v in tree.items():
+            out.append(_pack_str(str(k)))
+            out.append(_pack_tree(v))
+        return b"".join(out)
+    return _pack_ndarray(np.asarray(tree))
+
+
+def save_params(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a nested dict of arrays (`params_to_jax`'s result) as the flax
+    msgpack checkpoint `vstab.utils.checkpoint.save_params` writes."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_pack_tree(tree))
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     """Newest checkpoint by the step number embedded in `flow_NNNNNN.msgpack`
     (mtime breaks ties and orders free-form names), as
@@ -169,4 +234,30 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-__all__ = ["latest_checkpoint", "load_params", "params_from_jax"]
+def params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The exact inverse of `params_from_jax`: the port's state dict -> the
+    flax tree {'params': {module: {layer: {'kernel' | 'bias': f32 array}}}},
+    conv kernels OIHW -> HWIO and the transposed convs' flip undone."""
+    tree: Dict[str, Any] = {}
+    for name, value in sd.items():
+        module, layer, leaf = name.split(".")
+        t = value.detach().to("cpu", torch.float32)
+        if leaf == "weight":
+            if layer in _TRANSPOSED:
+                t = t.permute(2, 3, 0, 1).flip(0, 1)
+            else:
+                t = t.permute(2, 3, 1, 0)
+            leaf = "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected parameter {name}")
+        tree.setdefault(module, {}).setdefault(layer, {})[leaf] = np.ascontiguousarray(t.numpy())
+    return {"params": tree}
+
+
+__all__ = [
+    "latest_checkpoint",
+    "load_params",
+    "params_from_jax",
+    "params_to_jax",
+    "save_params",
+]
