@@ -93,7 +93,16 @@ after it):
    [0, 1]; a second call resumes without stabilizing anything; then the same
    through `python -m vstab_torch eval`. Needs `cv2` and raises without it.
 
-Every path of steps 3, 7 to 10 and 15 is driven with the launch counters
+16. sharded (runs after step 8): a one-rank NCCL process group, and
+   `vstab_torch.dist.stabilize_sharded` on the main clip from host frames
+   (T=48 padded to 64 with freeze frames, `block_len` 32) with the sparse-LS
+   and the affine smoothing, each against `stabilize` on the clip padded the
+   same way (same bucket, 99.9% of the values within 2e-3); frames/s beside
+   `stabilize`'s on the 48 and on the 64 frames, peak memory, the NCCL
+   version, a profiled run. Step 4 holds the kernels at its shapes (8 chunks
+   of pairs, one 64-frame render dispatch).
+
+Every path of steps 3, 7 to 10, 15 and 16 is driven with the launch counters
 zeroed just before and read just after, and must have launched all four
 forward kernels; step 13 does the same for the two kernels inside the network
 and their backward kernels.
@@ -604,6 +613,92 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
     }))
     return {"hw": (h, w), "n": t, "renders": {d: 2}, "chunks": 2 * _flow_chunks(t - 1),
             "launches": launches}
+
+
+def _median_s(run, iters: int = 3) -> float:
+    """Seconds of one run: one warm run, then the median of `iters`."""
+    run()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def sharded_phase(frames_np: np.ndarray, params: dict, card: str) -> dict:
+    """`stabilize_sharded` through a one-rank group of the port's backend
+    (`BACKEND`: NCCL for the CUDA tensors) on the main clip
+    (host frames), with the sparse-LS and the affine smoothing, each against
+    `stabilize` on the clip padded with freeze frames as the sharded path
+    pads it (the same bucket, 99.9% of the values within 2e-3); then the
+    real frames/s (one warm run, the median of three) of the sharded path and
+    of `stabilize` on the T real and on the T_pad padded frames, all from
+    host frames, the peak device memory, the NCCL version and, for sparse-LS,
+    one profiled run. Returns the two paths for `kernel_phase`: one rank holds
+    T_pad frames, so its flow runs T_pad pairs (the last a freeze pair) and
+    its render one dispatch of T_pad frames."""
+    import socket
+
+    import torch.distributed as dist
+    import vstab_torch
+    from vstab_torch.dist import make_mesh, stabilize_sharded
+    from vstab_torch.dist.init import BACKEND
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    paths = {}
+    try:
+        mesh = make_mesh()
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        base = vstab_torch.Config()
+        t, h, w, _ = frames_np.shape
+        for name, method in (("sharded_720p", "sparse_ls"), ("sharded_affine_720p", "affine")):
+            cfg = dataclasses.replace(base, smooth=dataclasses.replace(base.smooth, method=method))
+            run = lambda: stabilize_sharded(frames_np, params, cfg, mesh=mesh, gather=True)
+            torch.cuda.reset_peak_memory_stats()
+            (out, diags), launches, first_s = _run_counted(name, run)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            _check_frames(name, out, (t, h, w, 3))
+            t_pad = diags["t_pad"]
+            padded_np = frames_np[np.minimum(np.arange(t_pad), t - 1)]
+            padded = torch.from_numpy(padded_np).cuda()
+            bound, d = _bucket(padded, params, cfg)
+            if diags["max_disp"] != d:
+                raise AssertionError(f"{name}: bucket {diags['max_disp']}, stabilize on the padded clip {d}")
+            want = vstab_torch.stabilize(padded, params, cfg)[0][:t]
+            _close(f"{name} vs stabilize on the clip padded to {t_pad} frames", out, want)
+            del padded, want
+            # Not held: the T real frames alone solve a shorter path.
+            unpadded_bound, unpadded_d = _bucket(torch.from_numpy(frames_np).cuda(), params, cfg)
+            whole = vstab_torch.stabilize(frames_np, params, cfg)[0]
+            share = float(((out - whole).abs() <= 2e-3).float().mean())
+            del out, whole
+            sharded_s = _median_s(run)
+            whole_s = _median_s(lambda: vstab_torch.stabilize(frames_np, params, cfg))
+            padded_s = _median_s(lambda: vstab_torch.stabilize(padded_np, params, cfg))
+            _say(f"{name}: " + json.dumps({
+                "method": method, "frames": t, "t_pad": t_pad, "ranks": 1, "backend": BACKEND, "nccl": nccl,
+                "residual_bound_px": diags["residual_bound_px"], "max_disp": diags["max_disp"],
+                "padded_stabilize_residual_bound_px": bound, "first_run_s": first_s,
+                "frames_per_s": t / sharded_s, "run_s": sharded_s, "peak_mem_gb": peak,
+                "stabilize_frames_per_s": t / whole_s, "stabilize_run_s": whole_s,
+                "stabilize_residual_bound_px": unpadded_bound, "stabilize_max_disp": unpadded_d,
+                "stabilize_padded_run_s": padded_s, "vs_stabilize_share_within_2e-3": share,
+                "all_from_host_frames": True, "card": card,
+            }))
+            if method == "sparse_ls":
+                _say(f"{name}: profile of one more run ({card})")
+                profile(run)
+            paths[name] = {"hw": (h, w), "n": t_pad, "renders": {d: 1}, "chunks": _flow_chunks(t_pad),
+                           "launches": launches}
+    finally:
+        dist.destroy_process_group()
+    return paths
 
 
 class _StatsCatcher(logging.Handler):
@@ -1383,6 +1478,8 @@ def main() -> int:
     paths["affine_720p"] = affine_phase(frames, params, card)
     paths["batch_720p"] = batch_phase(frames, params, card)
     del frames
+    torch.cuda.empty_cache()
+    paths.update(sharded_phase(frames_np, params, card))
     torch.cuda.empty_cache()
 
     # 95 frames of 720p without another synthesis: the clip played forward,

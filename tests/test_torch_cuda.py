@@ -9,6 +9,10 @@ Tolerances: f32 outputs 1e-5 abs (same taps and weights, rounding apart);
 bf16 outputs one bf16 ulp (both versions sum in f32 and round once).
 """
 
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -331,6 +335,124 @@ def test_blocked_matches_whole_clip_on_the_card(cuda, method, as_uint8):
     torch.testing.assert_close(torch.from_numpy(got), want.cpu(), rtol=0, atol=2e-3)
 
 
+# The time-sharded pipeline on the card, through the port's backend
+# (`BACKEND`: NCCL for CUDA tensors): the halo, the all_gathers and the
+# all-reduces on CUDA tensors. 64 frames are a multiple of n_time *
+# block_len for 1, 2 and 4 ranks, so nothing is padded and the output is
+# `stabilize`'s: 2e-3 on every value, as on the CPU.
+SHARDED_METHODS = ("sparse_ls", "affine")
+
+
+def _sharded_case(method):
+    """(config, params, clip) of the card's sharded-pipeline tests."""
+    import vstab_torch
+    from vstab_torch.core import config as tcfg
+    from vstab_torch.eval.synthetic import make_shaky_clip
+
+    cfg = tcfg.Config(
+        flow=tcfg.FlowConfig(
+            pyramid_channels=(8, 12, 16), estimator_channels=(16, 12),
+            compute_dtype="float32", output_level=1,
+        ),
+        smooth=tcfg.SmoothConfig(method=method, grid_size=(4, 4), block_len=8),
+        render=tcfg.RenderConfig(crop_mode="auto"),
+    )
+    params = vstab_torch.default_params(cfg, seed=0, ckpt_dir="/nonexistent")
+    return cfg, params, make_shaky_clip(t=64, h=48, w=64, seed=5)[0]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("method", SHARDED_METHODS)
+def test_stabilize_sharded_one_nccl_rank_matches_stabilize(cuda, method):
+    import torch.distributed as dist
+
+    import vstab_torch
+    from vstab_torch.dist import make_mesh, stabilize_sharded
+    from vstab_torch.dist.init import BACKEND
+
+    cfg, params, frames = _sharded_case(method)
+    want, _ = vstab_torch.stabilize(frames, params, cfg)
+    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        reset_launches()
+        got, diags = stabilize_sharded(frames, params, cfg, mesh=make_mesh())
+        assert all(k.launches > 0 for k in KERNELS.values())
+    finally:
+        dist.destroy_process_group()
+    assert got.is_cuda and diags["start"] == 0 and diags["t_pad"] == 64
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+def _sharded_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of the several-card test: brought up by `initialize` on card
+    `rank`, it runs both methods with gather=True and saves what it got."""
+    import numpy as np
+
+    from vstab_torch.core.config import DistConfig
+    from vstab_torch.dist import initialize, make_mesh, shutdown, stabilize_sharded
+
+    initialize(DistConfig(coordinator_address=f"127.0.0.1:{port}", num_processes=world, process_id=rank))
+    try:
+        mesh = make_mesh(DistConfig(time_axis=world))
+        out = {}
+        for method in SHARDED_METHODS:
+            cfg, params, frames = _sharded_case(method)
+            reset_launches()
+            got, diags = stabilize_sharded(frames, params, cfg, mesh=mesh, gather=True)
+            out[method] = got.cpu().numpy()
+            out[f"{method}/launched"] = np.array([k.launches > 0 for k in KERNELS.values()])
+            out[f"{method}/card"] = np.array([got.device.index, diags["n_time"], diags["t_loc"]])
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    finally:
+        shutdown()
+
+
+# Several cards: one process a card, brought up by `initialize` with the
+# port's backend, so the halo's point-to-point exchange and the Schur
+# solve's messages run over NCCL between cards.
+def test_stabilize_sharded_on_several_cards_matches_stabilize(cuda, tmp_path):
+    import numpy as np
+
+    import vstab_torch
+    from vstab_torch.kernels._build import build_all
+
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more: NCCL takes one rank a card")
+    build_all()  # once, before the ranks load the kernels
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    port = str(_free_port())
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), port, str(tmp_path)],
+                         env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)
+    ]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert not any(p.returncode for p in procs), "\n".join(f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs))
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    for method in SHARDED_METHODS:
+        cfg, params, frames = _sharded_case(method)
+        want = vstab_torch.stabilize(frames, params, cfg)[0].cpu().numpy()
+        got = ranks[0][method]
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+        for r, arrays in enumerate(ranks):
+            np.testing.assert_array_equal(arrays[method], got)
+            assert arrays[f"{method}/launched"].all()
+            assert arrays[f"{method}/card"].tolist() == [r, world, 64 // world]
+
+
 def test_roll_and_wrap_pad_on_the_card(cuda):
     from vstab_torch.kernels.warp1d import _roll_and_wrap_pad
 
@@ -547,3 +669,7 @@ def test_train_entry_points_run_on_the_card(cuda, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "step 4/4" in out and "held-out EPE [in-dist]" in out and "held-out EPE [cross-dist]" in out
     assert (tmp_path / "full" / "flow_000004.msgpack").exists()
+
+
+if __name__ == "__main__":
+    _sharded_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -348,6 +348,7 @@ def test_port_imports_no_jax_flax_msgpack_or_vstab():
     assert len(files) > 15
     rels = {os.path.relpath(p, REPO).replace(os.sep, "/") for p in files}
     assert {"vstab_torch/flow/train.py", "vstab_torch/eval/metrics.py", "vstab_torch/eval/deepstab.py"} <= rels
+    assert {f"vstab_torch/dist/{n}.py" for n in ("__init__", "mesh", "init", "halo", "schur_dist", "pipeline_dist")} <= rels
     banned = {"jax", "jaxlib", "flax", "optax", "msgpack", "vstab"}
     # OpenCV only where video files are read and written and where the eval
     # harness tracks features, and only inside functions: importing the

@@ -111,9 +111,10 @@ def path_to_flow(path: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.
 def render_bucket(path, cfg: Config, hw: Tuple[int, int]) -> Tuple[float, int]:
     """(residual bound in px, render bucket) of a solved per-frame path
     (tensor or array [T,...]): the one place where the adaptive bound of the
-    render warps is derived. Reads the path back to the host."""
+    render warps is derived. The bound is computed where the path lies and
+    one scalar is read back to the host."""
     h, w = hw
-    bound = residual_disp_bound(torch.as_tensor(path).cpu().numpy(), h, w, cfg.smooth.method)
+    bound = float(residual_disp_bound(path, h, w, cfg.smooth.method))
     return bound, pick_max_disp(bound, cfg.render)
 
 

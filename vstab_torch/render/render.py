@@ -108,42 +108,46 @@ def _resize_mean_weights(g: int, n: int) -> tuple:
     return tuple(m.mean(dim=1).numpy().astype(np.float32))
 
 
-def residual_disp_bound(path: np.ndarray, h: int, w: int, method: str) -> float:
+def residual_disp_bound(path, h: int, w: int, method: str) -> torch.Tensor:
     """Upper bound (px) on max_t,p |flow_t(p) - mean_p flow_t| of the dense
-    warp flow induced by `path`: the residual the two-pass warp must cover.
+    warp flow induced by `path` (tensor or array): the residual the two-pass
+    warp must cover, as a 0-dim f32 tensor on the path's device.
 
     affine [T,2,3]: the flow is affine in (x,y); its pixel mean equals its
     value at the grid center and its extrema sit at the corners.
     grid [T,GH,GW,2]: the dense flow is a separable bilinear upsample, so the
     extrema sit at the vertices and the pixel mean is the vertex-weighted
-    average with the `_resize_mean_weights` weights. Host-side numpy f32, so
-    the whole-clip and blocked pipelines compute identical bounds."""
-    path = np.asarray(path, dtype=np.float32)
-    if path.size == 0:
-        return 0.0
+    average with the `_resize_mean_weights` weights. The time-sharded
+    pipeline bounds each rank's slice of the path this way and takes the MAX
+    over the ranks; the buckets of `pick_max_disp` absorb a last-bit
+    difference between devices."""
+    path = torch.as_tensor(path).float()
+    if path.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=path.device)
     if method == "affine":
-        pts = np.array(
+        pts = torch.tensor(
             [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1],
              [(w - 1) / 2.0, (h - 1) / 2.0]],
-            np.float32,
+            dtype=torch.float32, device=path.device,
         )  # 4 corners + center
-        lin = path[:, :, :2] @ pts.T + path[:, :, 2:3]  # [T,2,5] mapped pts
+        lin = einsum_f32("tij,pj->tip", path[:, :, :2], pts) + path[:, :, 2:3]  # [T,2,5]
         fl = lin - pts.T[None]  # flow at the 5 points
-        return float(np.abs(fl[:, :, :4] - fl[:, :, 4:5]).max())
+        return (fl[:, :, :4] - fl[:, :, 4:5]).abs().amax()
     t, gh, gw, _ = path.shape
-    wy = np.asarray(_resize_mean_weights(gh, h), np.float32)
-    wx = np.asarray(_resize_mean_weights(gw, w), np.float32)
-    mean = np.einsum("g,q,tgqc->tc", wy, wx, path)
-    return float(np.abs(path - mean[:, None, None, :]).max())
+    wy = torch.tensor(_resize_mean_weights(gh, h), dtype=torch.float32, device=path.device)
+    wx = torch.tensor(_resize_mean_weights(gw, w), dtype=torch.float32, device=path.device)
+    mean = einsum_f32("g,q,tgqc->tc", wy, wx, path)
+    return (path - mean[:, None, None, :]).abs().amax()
 
 
-def pick_max_disp(bound: float, cfg: RenderConfig) -> int:
-    """Static kernel bound for a measured residual bound: the smallest
-    bucket covering `bound` (+0.5px mean-rounding slack), floored at
-    cfg.max_residual_disp, capped at cfg.max_disp_limit. Warns, as the
-    reference does, only when no bucket covers the need."""
+def pick_max_disp(bound, cfg: RenderConfig) -> int:
+    """Static kernel bound for a measured residual bound (a float or a 0-dim
+    tensor): the smallest bucket covering `bound` (+0.5px mean-rounding
+    slack), floored at cfg.max_residual_disp, capped at cfg.max_disp_limit.
+    Warns, as the reference does, only when no bucket covers the need."""
     if not cfg.adaptive_max_disp:
         return cfg.max_residual_disp
+    bound = float(bound)
     need = max(int(np.ceil(bound + 0.5)), cfg.max_residual_disp)
     limit = min(cfg.max_disp_limit, _DISP_BUCKETS[-1])
     for b in _DISP_BUCKETS:

@@ -138,18 +138,29 @@ def block_tridiag_solve(diag: torch.Tensor, off: torch.Tensor, rhs: torch.Tensor
     return torch.stack(xs, dim=0)
 
 
+def reduce_separator_system(d_sep, contrib):
+    """Assemble the reduced block-tridiagonal separator system.
+
+    Separator k diag: D_k - s_rr[k] - s_ll[k+1]; off-diag (k-1,k): -s_lr[k].
+    Returns (diag [K,M,Q,Q], off [K-1,M,Q,Q] as S[k,k+1], g_l, g_r)."""
+    s_ll, s_rr, s_lr, g_l, g_r = contrib
+    k = d_sep.shape[0]
+    diag = d_sep - s_rr
+    diag[: k - 1] += -s_ll[1:]
+    off = -s_lr[1:]  # off[k] = S[k, k+1], from block k+1's elimination
+    return diag, off, g_l, g_r
+
+
 def schur_solve(d0, d1, d2, b, block_len: int = 32) -> torch.Tensor:
     """Solve SPD pentadiagonal A x = b by Schur-complement block elimination.
     Same contract as `banded_solve_scan`; requires block_len >= 2*Q + 1."""
     t = d0.shape[0]
     d0p, d1p, d2p, bp, tp = _pad_system(d0, d1, d2, b, block_len)
     a_ii, e_l, e_r, d_sep, b_i, b_s = blockify(d0p, d1p, d2p, bp, block_len)
-    w_l, w_r, w_b, (s_ll, s_rr, s_lr, g_l, g_r) = interior_eliminate(a_ii, e_l, e_r, b_i)
+    w_l, w_r, w_b, contrib = interior_eliminate(a_ii, e_l, e_r, b_i)
 
     k = d_sep.shape[0]
-    diag = d_sep - s_rr
-    diag[: k - 1] += -s_ll[1:]
-    off = -s_lr[1:]  # off[k] = S[k, k+1], from block k+1's elimination
+    diag, off, g_l, g_r = reduce_separator_system(d_sep, contrib)
     rhs_s = b_s - g_r  # rhs_S[k] = b_S[k] - g_r[k] - g_l[k+1]
     rhs_s[: k - 1] += -g_l[1:]
 
@@ -165,4 +176,10 @@ def schur_solve(d0, d1, d2, b, block_len: int = 32) -> torch.Tensor:
     return xb.transpose(1, 2).reshape(tp, -1)[:t]
 
 
-__all__ = ["block_tridiag_solve", "blockify", "interior_eliminate", "schur_solve"]
+__all__ = [
+    "block_tridiag_solve",
+    "blockify",
+    "interior_eliminate",
+    "reduce_separator_system",
+    "schur_solve",
+]

@@ -21,7 +21,7 @@ The host-side numpy builders (`_pool_matrices`, `spatial_modes`,
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,18 +127,29 @@ def temporal_diagonals(t: int, lam_s: float, lam_a: float):
     return d0, d1, d2
 
 
-def smooth_profiles(c: torch.Tensor, cfg: SmoothConfig) -> torch.Tensor:
-    """Solve for smoothed vertex profiles P given C [T,GH,GW,2]."""
+def smooth_profiles(
+    c: torch.Tensor,
+    cfg: SmoothConfig,
+    bands: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    solve: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Solve for smoothed vertex profiles P given C [T,GH,GW,2].
+
+    `bands` are the temporal band diagonals (d0, d1, d2) of c's rows
+    (default: `temporal_diagonals(T)`) and `solve(d0, d1, d2, rhs)` solves
+    the decoupled [T, G*2] band systems (default: the banded loop below
+    3*block_len frames, the Schur block solver from there on); the
+    time-sharded pipeline passes its rows of the global bands and the
+    distributed Schur solve."""
     t, gh, gw, _ = c.shape
     g = gh * gw
     dev = c.device
     v_np, mu_np = spatial_modes(gh, gw)
     v = torch.from_numpy(v_np).to(dev)
     mu = torch.from_numpy(mu_np).to(dev)
-    td0, td1, td2 = (
-        torch.from_numpy(x).to(dev)
-        for x in temporal_diagonals(t, cfg.lambda_smooth, cfg.lambda_accel)
-    )
+    if bands is None:
+        bands = temporal_diagonals(t, cfg.lambda_smooth, cfg.lambda_accel)
+    td0, td1, td2 = (torch.from_numpy(x).to(dev) for x in bands)
     alpha = cfg.lambda_data + cfg.lambda_rigid * mu  # [G]
     ctil = einsum_f32("ig,tic->tgc", v, c.reshape(t, g, 2))  # to eigenbasis
     rhs = (alpha[None, :, None] * ctil).reshape(t, g * 2)
@@ -146,10 +157,12 @@ def smooth_profiles(c: torch.Tensor, cfg: SmoothConfig) -> torch.Tensor:
     m = g * 2
     d0 = (td0[:, None] + alpha.repeat_interleave(2)[None, :]).expand(t, m)
     d0 = d0 + cfg.damping
-    d1 = td1[:, None].expand(max(t - 1, 0), m)
-    d2 = td2[:, None].expand(max(t - 2, 0), m)
+    d1 = td1[:, None].expand(td1.shape[0], m)
+    d2 = td2[:, None].expand(td2.shape[0], m)
 
-    if t >= 3 * cfg.block_len:
+    if solve is not None:
+        ptil = solve(d0, d1, d2, rhs)
+    elif t >= 3 * cfg.block_len:
         ptil = schur_solve(d0, d1, d2, rhs, block_len=cfg.block_len)
     else:
         ptil = banded_solve_scan(d0, d1, d2, rhs)
