@@ -21,7 +21,8 @@ after it):
    runs under torch.profiler for device time by kernel;
 4. holds each forward kernel against its plain torch version on the card, at
    the shapes the main path gives it (the cost volume at its five pyramid levels
-   in bf16 and one f32 shape; the feature warp at the four levels it runs
+   in bf16 and two f32 shapes, the middle and the finest level of
+   compute_dtype="float32"; the feature warp at the four levels it runs
    on, plus one f32 shape for its vector kernel and one 3-channel shape for
    its element kernel; the render warps at the bucket the main path chose,
    `hwarp` with 1 and 3 channels and at a width whose rows are not 16-byte
@@ -156,7 +157,8 @@ def _level_shapes(h: int, w: int, pairs: int = 8):
     return tuple((pairs, hp >> l, wp >> l, c) for l, c in zip(range(2, 7), _LEVEL_CHANNELS))
 
 
-_CV_F32_SHAPE = (8, 48, 80, 96)  # compute_dtype="float32" at the middle level
+# compute_dtype="float32" on the whole clip: the middle level and the finest
+_CV_F32_SHAPES = ((8, 48, 80, 96), (8, 192, 320, 32))
 # Substring of each kernel's device functions in the profiler's names.
 _DEVICE_NAMES = {
     "cost_volume": "cost_volume_", "bilinear_warp": "bilinear_warp_",
@@ -271,7 +273,8 @@ def kernel_phase(hbm: float, paths: dict):
 
     # -- cost volume, r=4: at the five levels of a chunk of pairs in the
     # path's dtype (bf16: tensor cores, useful operations 2*81*C a pixel; f32,
-    # the trainer's: CUDA cores) and, for the whole-clip path, one f32 shape.
+    # the trainer's: CUDA cores) and, for the whole-clip path, the middle and
+    # the finest level of the clip in f32 (compute_dtype="float32"), 0 launches.
     # The forward pass launches it once a level for every chunk of pairs.
     # Every path gets its own rows, also where its frame size is one already
     # shown: its launches belong to its shapes.
@@ -279,7 +282,7 @@ def kernel_phase(hbm: float, paths: dict):
         path_dtype = paths[path].get("dtype", torch.bfloat16)
         shapes = _level_shapes(*paths[path]["hw"], pairs=paths[path].get("pairs", 8))
         count = per_level(path, "cost_volume", len(shapes))
-        cases = [(s, path_dtype, count) for s in shapes] + ([(_CV_F32_SHAPE, torch.float32, 0)] if f32_too else [])
+        cases = [(s, path_dtype, count) for s in shapes] + [(s, torch.float32, 0) for s in _CV_F32_SHAPES if f32_too]
         for shape, dtype, launches in cases:
             f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
             f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1247,6 +1250,8 @@ def _step_breakdown(params: dict, cfg, scenes: torch.Tensor, card: str) -> None:
     _say("device time in one training step: " + json.dumps(out))
     if out["cost_volume_bwd_kernel"]["launches"] != 5 or out["bilinear_warp_bwd_kernel"]["launches"] != 4:
         raise AssertionError("the profiler did not see 5 and 4 launches of the backward kernels in a step")
+    if out["cost_volume_f32_kernel"]["launches"] != 5:
+        raise AssertionError("the profiler did not see 5 launches of the f32 cost volume in a step, one a level")
 
 
 def _train_fast_logged(**kw):

@@ -87,6 +87,56 @@ def test_cost_volume_bf16_takes_unaligned_views(cuda):
     )
 
 
+# f32 goes to cost_volume_f32_kernel, whose tile the launch picks from the
+# image size: the trainer's five levels reach the 4x16 (48x64), 2x16
+# (24x32), 1x8 (12x16) and 1x4 (6x8, 3x4) tiles, (1, 9, 20, 196) the 1x16
+# tile and a channel tail in the last 128-channel stage, (2, 33, 47, 21) the
+# 4x16 tile with odd C (4-byte staging copies, a channel tail) and ragged
+# edges, (1, 3, 4, 196) an image smaller than the window, and
+# (8, 48, 80, 96) the f32 serving level.
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 128), (8, 3, 4, 196),
+     (1, 3, 4, 196), (2, 33, 47, 21), (1, 9, 20, 196), (8, 48, 80, 96)],
+)
+def test_cost_volume_f32_paths_match_plain(cuda, shape, radius):
+    g = torch.Generator().manual_seed(radius)
+    f1 = torch.randn(shape, generator=g).to(cuda)
+    f2 = torch.randn(shape, generator=g).to(cuda)
+    torch.testing.assert_close(
+        cost_volume(f1, f2, radius), cost_volume_plain(f1, f2, radius), **_tol(torch.float32)
+    )
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 24, 16), (4, 48, 64, 32)])
+def test_cost_volume_f32_takes_unaligned_views(cuda, shape):
+    """A contiguous view that starts 4 bytes into its storage: the kernel
+    must pick the 4-byte staging copies from the addresses, not from C
+    (at the 2x16 and at the 4x16 tile)."""
+    g = torch.Generator().manual_seed(8)
+    size = shape[0] * shape[1] * shape[2] * shape[3]
+    flat = torch.randn((2, 1 + size), generator=g).to(cuda)
+    f1 = flat[0, 1:].view(shape)
+    f2 = flat[1, 1:].view(shape)
+    assert f1.is_contiguous() and f1.data_ptr() % 16 == 4
+    torch.testing.assert_close(cost_volume(f1, f2, 4), cost_volume_plain(f1, f2, 4), **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("shape", [(8, 48, 64, 32), (8, 24, 32, 64), (8, 6, 8, 128), (8, 3, 4, 196)])
+def test_cost_volume_f32_does_not_depend_on_the_batch(cuda, shape):
+    """An image's cost volume is the same to the bit whether it runs alone,
+    with one other image or in a batch of 8: the kernel picks its tile, and
+    with it the order of each pixel's sums, from the image size alone, so
+    that two pipelines that cut the same frames into other chunks agree."""
+    g = torch.Generator().manual_seed(9)
+    f1 = torch.randn(shape, generator=g).to(cuda)
+    f2 = torch.randn(shape, generator=g).to(cuda)
+    whole = cost_volume(f1, f2, 4)
+    for lo, hi in ((0, 1), (3, 5), (7, 8)):
+        assert torch.equal(cost_volume(f1[lo:hi].contiguous(), f2[lo:hi].contiguous(), 4), whole[lo:hi])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
 def test_bilinear_warp_matches_plain_with_clipped_flow(cuda, dtype, flow_dtype):

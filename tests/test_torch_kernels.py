@@ -57,13 +57,17 @@ def _close(got: torch.Tensor, want, atol=ATOL):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
 
 
-# The last three are the shapes at which the card's kernel takes its other
-# paths (196 and 21 channels: 8-byte and 2-byte staging copies, a channel
-# tail; W=20 and 47: output runs that start unaligned), so the oracle it is
-# held to there is itself held to the reference here.
+# The third to fifth are the shapes at which the card's bf16 kernel takes its
+# other paths (196 and 21 channels: 8-byte and 2-byte staging copies, a
+# channel tail; W=20 and 47: output runs that start unaligned); the last five
+# are the trainer's pyramid levels at N=1 in f32, the channel counts of the
+# f32 kernel's tiles, the coarsest an image smaller than the window. So the
+# oracle the card's kernels are held to there is itself held to the
+# reference here.
 @pytest.mark.parametrize(
     "shape,radius",
-    [((2, 33, 47, 24), 2), ((1, 12, 20, 19), 4), ((1, 6, 20, 196), 4), ((2, 9, 47, 21), 3), ((1, 5, 11, 21), 1)],
+    [((2, 33, 47, 24), 2), ((1, 12, 20, 19), 4), ((1, 6, 20, 196), 4), ((2, 9, 47, 21), 3), ((1, 5, 11, 21), 1),
+     ((1, 48, 64, 32), 4), ((1, 24, 32, 64), 4), ((1, 12, 16, 96), 4), ((1, 6, 8, 128), 4), ((1, 3, 4, 196), 4)],
 )
 def test_cost_volume_plain_matches_xla(shape, radius):
     rng = np.random.default_rng(0)

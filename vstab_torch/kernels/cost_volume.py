@@ -10,7 +10,9 @@ H100: bytes at the finest estimated level of a 720p clip (8 pairs of
 the source's header): bf16 inputs go through `mma.sync` on the tensor cores,
 a warp per (row, 8 pixels) holding the band of the product f2-row x f1-row
 in registers, operands staged as bf16 in shared memory by `cp.async`; f32
-inputs stay in full f32 on the CUDA cores, one thread per pixel. Both stage
+inputs stay in full f32 on the CUDA cores, a thread holding 4 pixels x 9 dx
+of one dy, neighbouring lanes splitting the channels (more lanes, smaller
+tiles at the coarse levels), operands staged by `cp.async` too. Both stage
 the output tile in shared memory and write it in full lines.
 
 Semantics (PWC-Net convention): for d=(dy,dx) in [-r,r]^2,

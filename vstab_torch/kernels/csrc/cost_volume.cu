@@ -39,18 +39,36 @@
 //   instructions around the products: address arithmetic of the staging,
 //   conversion, and the 2-byte stores into the output tile.
 //
-// f32 (compute_dtype="float32": the small-clip check and the tests):
-//   cost_volume_f32_kernel, full f32 on the CUDA cores, never TF32 (the
-//   reference sums f32 products). One thread per pixel of an 8x32 tile holds
-//   its (2R+1)^2 sums in registers; the f2 halo band goes through shared
-//   memory 8 channels at a time.
+// f32 (the trainer's default, and compute_dtype="float32" in serving):
+//   cost_volume_f32_kernel, full f32 FMAs on the CUDA cores, never TF32 (the
+//   reference sums f32 products). At the trainer's and the serving shapes
+//   the bound is bytes, and the 2*81*C operations a pixel fit under it at
+//   the f32 rate. A thread owns 4 consecutive pixels of a row at one dy:
+//   36 sums at R=4 (4 pixels x 9 dx), fed per channel quad by 4 f1 and 12
+//   f2 float4 reads from shared memory, a warp the whole tile at one dy, a
+//   block 2R+1 warps. KS neighbouring lanes split the channels of their
+//   pixels and add their sums up through shuffles before the epilogue, so
+//   the launch picks the tile from the tile count (the largest with one for
+//   every SM in a batch of 8 images; the tile, and so the order of a pixel's
+//   sums, follows from the image size alone): 4x16 pixels with the channels
+//   over 2 lanes at the finest levels, down to 1x4 pixels over 32 lanes at
+//   the coarsest, where a few hundred pixels would otherwise leave most SMs
+//   idle and walk a long serial chain of channels. f1 tile and f2 halo band are staged 32 to 128
+//   channels at a time (8 to 32 float4 slots a pixel) by cp.async, through
+//   a two-stage ring where the channels take several stages: 16-byte copies
+//   when C % 4 == 0 and both images are 16-byte aligned, else 4-byte
+//   copies, zero-filled outside the image and past the channel tail. A
+//   thread's quad order is rotated by its lane, so the 8 lanes of a
+//   shared-memory phase read 8 different bank groups. What bounds it on the
+//   H100 is shared memory: 16 float4 reads a lane for 144 products.
 //
 // Both write their results, scaled by 1/C and rounded once, into a shared
 // tile laid out [pixel][(2R+1)^2]: for a fixed y the outputs of the tile's
 // pixels are one contiguous run in device memory, which then leaves in
 // 16-byte stores (bf16; a run that does not start on a 16-byte boundary is
 // staged at the same offset from one, and its first and last few elements
-// leave as 2-byte stores) or in coalesced 4-byte stores (f32).
+// leave as 2-byte stores) or (f32) in coalesced 16-byte stores where every
+// tile row starts on a 16-byte boundary, else 4-byte ones.
 // The TPU kernel's lane rolls and channels-on-sublanes relayout are not
 // carried over.
 //
@@ -63,98 +81,266 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------- f32 path
+//
+// Tile shape of cost_volume_f32_kernel: TH_ rows x PX*NXG pixels. A thread
+// owns PX consecutive pixels of one row at one dy: PX*(2R+1) sums over the
+// dx of that row. KS neighbouring lanes share those pixels and split their
+// channels, and the KS*NXG*TH_ == 32 lanes of a warp cover the whole tile
+// at one dy, so the block has 2R+1 warps, warp i at dy = i - R. Operands are
+// staged CQ channel quads (4*CQ channels) at a time in float4 slots,
+// [pixel][quad], in a two-stage ring; a launch whose channels fit in one
+// stage gets the shared memory of one.
+constexpr int PX = 4;              // pixels a thread: one row, consecutive columns
+constexpr int F32_MAX_BLOCKS = 3;  // resident blocks an SM that the registers are planned for
 
-constexpr int TH = 8;   // tile rows
-constexpr int TW = 32;  // tile columns (one warp per row)
-constexpr int CC = 8;   // channels per shared-memory chunk
-
-template <int R>
+template <int R, int TH_, int NXG, int KS, int CQ_>
 struct F32Cfg {
+  static_assert(KS * NXG * TH_ == 32, "the lanes of a warp cover the tile at one dy");
+  static_assert(CQ_ % 8 == 0 && CQ_ % KS == 0 && (CQ_ & (CQ_ - 1)) == 0,
+                "quads a stage: a power of two, a multiple of 8 and of KS");
   static constexpr int S = 2 * R + 1;
   static constexpr int ND = S * S;
-  static constexpr int BH = TH + 2 * R;
-  static constexpr int BW = TW + 2 * R;
-  static constexpr int BAND = CC * BH * BW;   // floats
-  static constexpr int TILE = TH * TW * ND;   // floats
-  static constexpr int SMEM_BYTES = 4 * (BAND > TILE ? BAND : TILE);
+  static constexpr int CQ = CQ_;
+  static constexpr int TH = TH_;
+  static constexpr int TW = PX * NXG;              // tile columns
+  static constexpr int BH = TH_ + 2 * R;           // f2 band rows
+  static constexpr int BW = TW + 2 * R;            // f2 band columns
+  static constexpr int BAND_PIX = BH * BW;
+  static constexpr int PIX = BAND_PIX + TH_ * TW;  // staged pixels: f2 band, then f1 tile
+  static constexpr int STAGE = PIX * CQ;           // float4 slots a stage
+  static constexpr int NT = 32 * S;
+  static constexpr int OUT = TH_ * TW * ND;        // floats of the output tile
+  // Shared memory with one stage and with two; the output tile reuses it.
+  static constexpr int SMEM_ONE = STAGE * 16 > OUT * 4 ? STAGE * 16 : OUT * 4;
+  static constexpr int SMEM_TWO = 2 * STAGE * 16 > OUT * 4 ? 2 * STAGE * 16 : OUT * 4;
+  // Blocks an SM's 228 KB of shared memory holds at one stage (1 KB of it
+  // reserved a block), at most F32_MAX_BLOCKS: what __launch_bounds__ plans
+  // the registers for.
+  static constexpr int FIT = 233472 / (SMEM_ONE + 1024);
+  static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : (FIT > F32_MAX_BLOCKS ? F32_MAX_BLOCKS : FIT);
 };
 
-template <int R>
-__global__ void __launch_bounds__(TH * TW)
-cost_volume_f32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                       float* __restrict__ out, int h, int w, int c, float inv_c) {
-  typedef F32Cfg<R> Cfg;
-  constexpr int S = Cfg::S, ND = Cfg::ND, BH = Cfg::BH, BW = Cfg::BW;
-  extern __shared__ __align__(16) float cv_smem_f[];
-  float (*band)[BH][BW] = reinterpret_cast<float (*)[BH][BW]>(cv_smem_f);
+// cp.async with zero-fill: ok == false writes zeros and reads nothing (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(vstab::smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4_zfill(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(vstab::smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int y = y0 + ty, x = x0 + tx;
-  const bool inside = (y < h) && (x < w);
-  const int64_t img = (int64_t)n * h * w * c;
-  const int64_t pix = img + ((int64_t)y * w + x) * c;
-
-  float acc[ND];
-#pragma unroll
-  for (int k = 0; k < ND; ++k) acc[k] = 0.f;
-
-  for (int cb = 0; cb < c; cb += CC) {
-    __syncthreads();  // the previous chunk's band is no longer read
-    for (int i = tid; i < BH * BW * CC; i += TH * TW) {
-      const int cc = i % CC;
-      const int p = i / CC;
-      const int bx = p % BW, by = p / BW;
-      const int gy = y0 - R + by, gx = x0 - R + bx, ch = cb + cc;
-      float v = 0.f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w && ch < c)
-        v = f2[img + ((int64_t)gy * w + gx) * c + ch];
-      band[cc][by][bx] = v;
+// Stage channels cb .. cb+4*CQ-1 of the f2 band (BH rows of BW pixels from
+// (y0-R, x0-R)) and the f1 tile (TH_ rows of TW pixels from (y0, x0)) of
+// one image into `stage`: slot pix*CQ + q holds channels cb+4q .. cb+4q+3
+// of staged pixel pix. One warp a staged row; neighbouring lanes copy
+// neighbouring quads of a pixel, which lie side by side in device memory.
+// WIDE: one 16-byte copy a quad (C % 4 == 0, both images 16-byte aligned);
+// else four 4-byte copies. Pixels outside the image and channels from c on
+// are zero.
+template <class Cfg, int R, bool WIDE>
+__device__ __forceinline__ void stage_f32(float4* stage, const float* __restrict__ f1,
+                                          const float* __restrict__ f2, int y0, int x0,
+                                          int h, int w, int c, int cb) {
+  constexpr int CQ = Cfg::CQ, V = WIDE ? 1 : 4;  // copies a quad
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < Cfg::BH + Cfg::TH; r += Cfg::S) {
+    const bool band = r < Cfg::BH;
+    const int gy = band ? y0 - R + r : y0 + r - Cfg::BH;
+    const int gx0 = band ? x0 - R : x0;
+    const int count = band ? Cfg::BW : Cfg::TW;
+    const float* img = band ? f2 : f1;
+    const bool row_ok = gy >= 0 && gy < h;
+    const float* src_row = img + (int64_t)(row_ok ? gy : 0) * w * c + cb;
+    float4* dst_row = stage + (band ? r * Cfg::BW : Cfg::BAND_PIX + (r - Cfg::BH) * Cfg::TW) * CQ;
+    for (int i = lane; i < count * CQ * V; i += 32) {
+      const int e = i % V;
+      const int q = (i / V) % CQ;
+      const int gx = gx0 + i / (V * CQ);
+      const int ch = 4 * q + e;  // from cb
+      const bool ok = row_ok && gx >= 0 && gx < w && ch < c - cb;
+      const float* src = ok ? src_row + (gx * c + ch) : img;
+      float* dst = reinterpret_cast<float*>(dst_row + (i / V)) + e;
+      if (WIDE) cp_async_16_zfill(dst, src, ok);
+      else cp_async_4_zfill(dst, src, ok);
     }
-    __syncthreads();
-    if (inside) {
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) {
-        const float a = (cb + cc < c) ? f1[pix + cb + cc] : 0.f;
-#pragma unroll
-        for (int dy = 0; dy < S; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < S; ++dx)
-            acc[dy * S + dx] = fmaf(a, band[cc][ty + dy][tx + dx], acc[dy * S + dx]);
-      }
-    }
-  }
-
-  // The band is no longer read: the same shared memory becomes the output
-  // tile [pixel][ND]. Lanes are ND floats apart, an odd count: no conflicts.
-  __syncthreads();
-  float* tile = cv_smem_f;
-  if (inside) {
-#pragma unroll
-    for (int k = 0; k < ND; ++k) tile[tid * ND + k] = acc[k] * inv_c;
-  }
-  __syncthreads();
-  const int run = min(TW, w - x0) * ND;  // floats of one tile row, contiguous in out
-  for (int r = 0; r < TH && y0 + r < h; ++r) {
-    float* o = out + (((int64_t)n * h + y0 + r) * w + x0) * ND;
-    const float* t = tile + r * TW * ND;
-    for (int i = tid; i < run; i += TH * TW) o[i] = t[i];
   }
 }
 
-template <int R>
-int launch_f32(const float* f1, const float* f2, float* out, int n, int h, int w,
-               int c, cudaStream_t stream) {
-  typedef F32Cfg<R> Cfg;
-  const int err = vstab::allow_dynamic_smem(cost_volume_f32_kernel<R>, Cfg::SMEM_BYTES);
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// One block a tile; blockIdx.x runs over (image, tile row, tile column).
+// vec_out: out is 16-byte aligned and w % 4 == 0, so that every tile row's
+// run of outputs starts on a 16-byte boundary.
+template <int R, int TH_, int NXG, int KS, int CQ>
+__global__ void __launch_bounds__(F32Cfg<R, TH_, NXG, KS, CQ>::NT, F32Cfg<R, TH_, NXG, KS, CQ>::MIN_BLOCKS)
+cost_volume_f32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                       float* __restrict__ out, int h, int w, int c, int wide, int vec_out,
+                       float inv_c) {
+  typedef F32Cfg<R, TH_, NXG, KS, CQ> Cfg;
+  constexpr int S = Cfg::S, ND = Cfg::ND, TW = Cfg::TW;
+  extern __shared__ __align__(16) float4 cv_smem_q[];
+
+  const int tid = threadIdx.x;
+  const int cs = tid % KS;               // this lane's share of the channels
+  const int xg = (tid / KS) % NXG;       // its pixels: columns PX*xg ..
+  const int row = (tid / (KS * NXG)) % TH_;
+  const int dyi = tid >> 5;              // dy + R: one a warp
+  const int tiles_x = (w + TW - 1) / TW, tiles_y = (h + TH_ - 1) / TH_;
+  const int x0 = (int)(blockIdx.x % tiles_x) * TW;
+  const int64_t t2 = blockIdx.x / tiles_x;
+  const int y0 = (int)(t2 % tiles_y) * TH_;
+  const int64_t img = t2 / tiles_y;
+  f1 += img * h * w * c;  // this block's image
+  f2 += img * h * w * c;
+
+  float acc[PX][S];
+#pragma unroll
+  for (int p = 0; p < PX; ++p)
+#pragma unroll
+    for (int d = 0; d < S; ++d) acc[p][d] = 0.f;
+
+  // Slots of this thread's f1 pixels and of the first f2 pixel it reads
+  // (row + dy of the band, column PX*xg: dx = -R for its first pixel).
+  const int a_off = (Cfg::BAND_PIX + row * TW + PX * xg) * CQ;
+  const int b_off = ((row + dyi) * Cfg::BW + PX * xg) * CQ;
+  const int nq = (c + 3) / 4;  // quads that hold channels
+  const int chunks = (c + 4 * CQ - 1) / (4 * CQ);
+  const auto stage = [&](int ci) {
+    float4* dst = cv_smem_q + (ci & 1) * Cfg::STAGE;
+    if (wide) stage_f32<Cfg, R, true>(dst, f1, f2, y0, x0, h, w, c, ci * 4 * CQ);
+    else stage_f32<Cfg, R, false>(dst, f1, f2, y0, x0, h, w, c, ci * 4 * CQ);
+    vstab::cp_async_commit();
+  };
+
+  // Chunk ci lives in stage ci % 2, and chunk ci+1 is staged (into the
+  // stage last read before the barrier that ended the previous step) before
+  // chunk ci is summed; one commit per chunk, empty past the last, so that
+  // "all but the newest group are complete" always means "this step's chunk
+  // has landed".
+  if (chunks > 0) stage(0);
+  for (int ci = 0; ci < chunks; ++ci) {
+    if (ci + 1 < chunks) stage(ci + 1);
+    else vstab::cp_async_commit();
+    vstab::cp_async_wait<1>();
+    __syncthreads();
+    const float4* cur = cv_smem_q + (ci & 1) * Cfg::STAGE;
+#pragma unroll
+    for (int i = 0; i < CQ / KS; ++i) {
+      // Quad q of the stage, q = cs (mod KS). The rotation by tid puts the
+      // 8 lanes of a shared-memory phase on 8 different 16-byte bank groups
+      // (every slot offset below is a multiple of CQ, itself of 8).
+      const int q = (tid + KS * i) & (CQ - 1);
+      if (ci * CQ + q < nq) {
+        float4 a[PX];
+#pragma unroll
+        for (int p = 0; p < PX; ++p) a[p] = cur[a_off + p * CQ + q];
+#pragma unroll
+        for (int j = 0; j < PX + 2 * R; ++j) {
+          const float4 b = cur[b_off + j * CQ + q];  // f2 at column PX*xg + j - R
+#pragma unroll
+          for (int p = 0; p < PX; ++p) {
+            const int dxi = j - p;  // dx + R
+            if (dxi >= 0 && dxi < S) acc[p][dxi] = dot4(a[p], b, acc[p][dxi]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  vstab::cp_async_wait<0>();
+
+  // The KS lanes of a pixel group are neighbours in one warp: their partial
+  // sums meet through shuffles, and each lane then owns every KS-th sum.
+#pragma unroll
+  for (int m = 1; m < KS; m <<= 1)
+#pragma unroll
+    for (int p = 0; p < PX; ++p)
+#pragma unroll
+      for (int d = 0; d < S; ++d) acc[p][d] += __shfl_xor_sync(0xffffffffu, acc[p][d], m);
+
+  // The operands are no longer read: the shared memory becomes the output
+  // tile [pixel][ND], one contiguous run of cols*ND floats a tile row, which
+  // leaves in 16-byte stores where whole rows allow it, else 4-byte ones.
+  float* tile = reinterpret_cast<float*>(cv_smem_q);
+  const int pix0 = row * TW + PX * xg;
+#pragma unroll
+  for (int p = 0; p < PX; ++p)
+#pragma unroll
+    for (int d = 0; d < S; ++d)
+      if ((p * S + d) % KS == cs) tile[(pix0 + p) * ND + dyi * S + d] = acc[p][d] * inv_c;
+  __syncthreads();
+  float* o = out + ((img * h + y0) * w + x0) * ND;
+  const int rows = min(TH_, h - y0), cols = min(TW, w - x0);
+  if (vec_out && cols == TW) {
+    constexpr int RUN4 = TW * ND / 4;
+    for (int i = tid; i < rows * RUN4; i += Cfg::NT) {
+      const int r = i / RUN4;
+      reinterpret_cast<float4*>(o + (int64_t)r * w * ND)[i - r * RUN4] =
+          reinterpret_cast<const float4*>(tile)[i];
+    }
+  } else {
+    for (int r = 0; r < rows; ++r)
+      for (int i = tid; i < cols * ND; i += Cfg::NT) o[(int64_t)r * w * ND + i] = tile[r * TW * ND + i];
+  }
+}
+
+template <int R, int TH_, int NXG, int KS, int CQ>
+int launch_f32_tile(const float* f1, const float* f2, float* out, int h, int w, int c, int wide,
+                    int vec_out, int64_t tiles, cudaStream_t stream) {
+  typedef F32Cfg<R, TH_, NXG, KS, CQ> Cfg;
+  const int err = vstab::allow_dynamic_smem(cost_volume_f32_kernel<R, TH_, NXG, KS, CQ>, Cfg::SMEM_TWO);
   if (err) return err;
-  const dim3 block(TW, TH);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  cost_volume_f32_kernel<R><<<grid, block, Cfg::SMEM_BYTES, stream>>>(
-      f1, f2, out, h, w, c, 1.f / (float)c);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = c > 4 * CQ ? Cfg::SMEM_TWO : Cfg::SMEM_ONE;  // one stage: a single chunk
+  cost_volume_f32_kernel<R, TH_, NXG, KS, CQ><<<(unsigned)tiles, Cfg::NT, smem, stream>>>(
+      f1, f2, out, h, w, c, wide, vec_out, 1.f / (float)c);
   return vstab::launch_status();
+}
+
+// The largest tile of which a batch of F32_BATCH images has at least
+// F32_MIN_TILES (one for each of the card's 132 SMs) runs; smaller tiles
+// split the channels over more lanes, and where even the smallest falls
+// short it runs all the same. The tile, and with it the order in which a
+// pixel's products are summed, follows from the image size alone: a pixel's
+// outputs do not depend on how many images share the launch (8: the chunk
+// of frame pairs of every serving path and the trainer's batch).
+constexpr int64_t F32_MIN_TILES = 132;
+constexpr int64_t F32_BATCH = 8;
+
+template <class Cfg>
+int64_t f32_tiles(int h, int w) {
+  return (int64_t)((h + Cfg::TH - 1) / Cfg::TH) * ((w + Cfg::TW - 1) / Cfg::TW);
+}
+
+template <int R>
+int launch_f32(const float* f1, const float* f2, float* out, int n, int h, int w, int c,
+               cudaStream_t stream) {
+  if ((int64_t)w * c > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // 32-bit offsets in a row
+  // 16-byte staging copies where the channel count and both base addresses
+  // allow them; 16-byte output stores where every tile row starts aligned.
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(f1) | reinterpret_cast<uintptr_t>(f2);
+  const int wide = c % 4 == 0 && bits % 16 == 0;
+  const int vec_out = w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int64_t t;
+  if ((t = f32_tiles<F32Cfg<R, 4, 4, 2, 8>>(h, w)) * F32_BATCH >= F32_MIN_TILES)
+    return launch_f32_tile<R, 4, 4, 2, 8>(f1, f2, out, h, w, c, wide, vec_out, n * t, stream);
+  if ((t = f32_tiles<F32Cfg<R, 2, 4, 4, 8>>(h, w)) * F32_BATCH >= F32_MIN_TILES)
+    return launch_f32_tile<R, 2, 4, 4, 8>(f1, f2, out, h, w, c, wide, vec_out, n * t, stream);
+  if ((t = f32_tiles<F32Cfg<R, 1, 4, 8, 8>>(h, w)) * F32_BATCH >= F32_MIN_TILES)
+    return launch_f32_tile<R, 1, 4, 8, 8>(f1, f2, out, h, w, c, wide, vec_out, n * t, stream);
+  if ((t = f32_tiles<F32Cfg<R, 1, 2, 16, 16>>(h, w)) * F32_BATCH >= F32_MIN_TILES)
+    return launch_f32_tile<R, 1, 2, 16, 16>(f1, f2, out, h, w, c, wide, vec_out, n * t, stream);
+  t = f32_tiles<F32Cfg<R, 1, 1, 32, 32>>(h, w);
+  return launch_f32_tile<R, 1, 1, 32, 32>(f1, f2, out, h, w, c, wide, vec_out, n * t, stream);
 }
 
 // --------------------------------------------------------------- bf16 path

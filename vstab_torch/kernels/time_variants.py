@@ -1,17 +1,22 @@
-"""Time variants of the feature warp and of `vwarp` beside the sources as
-they stand, on one card.
+"""Time variants of the f32 cost volume, the feature warp and `vwarp`
+beside the sources as they stand, on one card.
 
-    python -m vstab_torch.kernels.time_variants [--parent DIR]
+    python -m vstab_torch.kernels.time_variants [--parent DIR] [--only KERNEL ...] [--ptxas]
 
-Run from the root of the repository (it takes `_time_ms` and the card line
-from `chip_smoke.py`). A variant is a source of `csrc/` with some of its
+Run from the root of the repository (it takes `_time_ms` and the memory
+rate from `chip_smoke.py`). A variant is a source of `csrc/` with some of its
 tuning constants replaced (`VARIANTS` below); `--parent DIR` adds the sources
 of another `csrc/` directory, e.g. an earlier commit's unpacked with
 `git archive`, under the name "parent". All libraries are built in parallel
 into `vstab_torch/_build/variants/`, each is held against the plain version
 once, and then all are timed in turns (parent, current, variants, current,
 parent) at the main path's shapes, so that every comparison is made on one
-card within one call. One JSON line per shape.
+card within one call. One JSON line per shape; for the f32 cost volume also
+one line per library with the sum of its times over the trainer's five
+levels (one launch each a training step). `--only` times some of
+`cost_volume_f32`, `bilinear_warp`, `vwarp`; `--ptxas` builds the cost
+volume with `-Xptxas -v` and prints each library's f32 kernels' registers
+and spills.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -27,12 +33,16 @@ import torch
 import torch.nn.functional as F
 
 from vstab_torch.kernels import _build
+from vstab_torch.kernels.cost_volume import cost_volume_plain
 from vstab_torch.kernels.warp import bilinear_warp_plain
 from vstab_torch.kernels.warp1d import vwarp_plain
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 # name -> (source, [(constant's definition, its replacement), ...])
 VARIANTS = {
+    # the f32 cost volume with registers planned for 2 resident blocks an SM
+    # instead of 3
+    "cv_f32_blocks2": ("cost_volume", [("F32_MAX_BLOCKS = 3", "F32_MAX_BLOCKS = 2")]),
     **{
         f"warp_{tx}x{ty}": ("warp", [("BW_TX = 128", f"BW_TX = {tx}"), ("BW_TY = 2", f"BW_TY = {ty}")])
         for tx, ty in ((256, 1), (64, 4), (128, 1), (64, 2))
@@ -45,17 +55,26 @@ VARIANTS = {
     },
 }
 WARP_SHAPES = ((8, 192, 320, 32), (8, 96, 160, 64), (8, 48, 80, 96), (8, 24, 40, 128))
+# The trainer's five pyramid levels (a batch of 8 at 192x256), then the f32
+# serving middle and finest levels of the 720p clip.
+CV_TRAIN_SHAPES = ((8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 128), (8, 3, 4, 196))
+CV_SHAPES = CV_TRAIN_SHAPES + ((8, 48, 80, 96), (8, 192, 320, 32))
+# kernel timed -> its source in csrc/
+TIMED = {"cost_volume_f32": "cost_volume", "bilinear_warp": "warp", "vwarp": "warp1d"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_CV_ARGS = [_PTR] * 3 + [_INT] * 6 + [_PTR]
 _WARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 2 + [_PTR]
 _VWARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _PTR]
 
 
-def _build_all(parent):
+def _build_all(parent, sources, ptxas):
     os.makedirs(OUT, exist_ok=True)
-    jobs = {"current": {s: os.path.join(_build.CSRC, f"{s}.cu") for s in ("warp", "warp1d")}}
+    jobs = {"current": {s: os.path.join(_build.CSRC, f"{s}.cu") for s in sources}}
     if parent:
-        jobs["parent"] = {s: os.path.join(parent, f"{s}.cu") for s in ("warp", "warp1d")}
+        jobs["parent"] = {s: os.path.join(parent, f"{s}.cu") for s in sources}
     for name, (source, subs) in VARIANTS.items():
+        if source not in sources:
+            continue
         with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
             text = f.read()
         for old, new in subs:
@@ -67,11 +86,12 @@ def _build_all(parent):
             f.write(text)
         jobs[name] = {source: path}
     procs = []
-    for name, sources in jobs.items():
-        for source, path in sources.items():
+    for name, paths in jobs.items():
+        for source, path in paths.items():
             so = os.path.join(OUT, f"{name}-{source}.so")
             include = parent if name == "parent" else _build.CSRC
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, "-o", so, path]
+            verbose = ["-Xptxas", "-v"] if ptxas and source == "cost_volume" else []
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *verbose, "-I", include, "-o", so, path]
             procs.append((name, source, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
@@ -80,7 +100,33 @@ def _build_all(parent):
         if proc.returncode:
             raise RuntimeError(f"{name} ({source}.cu) did not build:\n{log}")
         libs.setdefault(source, {})[name] = ctypes.CDLL(so)
+        if ptxas and source == "cost_volume":
+            _print_ptxas(name, log)
     return libs
+
+
+def _print_ptxas(name, log):
+    """One JSON line per f32 cost-volume kernel in ptxas's report: its
+    template arguments (R, and for the tiled kernel TH, NXG, KS, CQ),
+    registers and spills."""
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            entry = m.group(1) if "cost_volume_f32_kernel" in m.group(1) else None
+            stores = loads = None
+        if entry is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            stores, loads = int(spill.group(1)), int(spill.group(2))
+        if regs:
+            args = [int(a) for a in re.findall(r"Li(\d+)E", entry.split("cost_volume_f32_kernel", 1)[1])]
+            print(json.dumps({"ptxas": name, "kernel": "cost_volume_f32_kernel", "template_args": args,
+                              "registers": int(regs.group(1)), "spill_stores": stores,
+                              "spill_loads": loads}), flush=True)
+            entry = None
 
 
 def _order(libs):
@@ -97,21 +143,65 @@ def _call(lib, symbol, argtypes, *args):
         raise RuntimeError(f"{symbol}: CUDA launch failed ({err})")
 
 
+def _time_cost_volume(libs, g, stream, time_ms, hbm):
+    """The f32 cost volume, r=4, at CV_SHAPES: every library held to
+    `cost_volume_plain` (atol 1e-5), then timed in turns; the bound is its
+    bytes over the card's memory rate `hbm`."""
+    sums = {}
+    for shape in CV_SHAPES:
+        n, h, w, c = shape
+        f1 = torch.randn(shape, generator=g, device="cuda")
+        f2 = torch.randn(shape, generator=g, device="cuda")
+        want = cost_volume_plain(f1, f2, 4)
+        out = torch.empty_like(want)
+        times = []
+        for name in _order(libs):
+            def run():
+                _call(libs[name], "vstab_cost_volume", _CV_ARGS, f1.data_ptr(), f2.data_ptr(),
+                      out.data_ptr(), n, h, w, c, 4, 0, stream)
+            out.zero_()
+            run()
+            torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+            times.append((name, time_ms(run)))
+        bound_ms = (2 * f1.numel() + out.numel()) * 4 / hbm * 1e3
+        print(json.dumps({"kernel": "cost_volume_f32", "shape": shape, "bound_ms": bound_ms, "ms": times}),
+              flush=True)
+        if shape in CV_TRAIN_SHAPES:
+            # parent and current are timed in two turns: one sum for each
+            seen = {}
+            for name, ms in times:
+                turn = seen[name] = seen.get(name, -1) + 1
+                by_turn = sums.setdefault(name, [])
+                if turn == len(by_turn):
+                    by_turn.append(0.0)
+                by_turn[turn] += ms
+        del f1, f2, want, out
+    for name, by_turn in sums.items():
+        print(json.dumps({"kernel": "cost_volume_f32", "library": name,
+                          "train_levels_sum_ms_by_turn": by_turn}), flush=True)
+
+
 def main() -> int:
-    from chip_smoke import _card, _time_ms
+    from chip_smoke import _hbm_rate, _time_ms
+    from vstab_torch.bench import card as _card
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another csrc/ directory to time beside this one")
+    ap.add_argument("--only", nargs="+", choices=sorted(TIMED), default=sorted(TIMED),
+                    help="kernels to time (default: all)")
+    ap.add_argument("--ptxas", action="store_true", help="print the f32 cost volume's registers and spills")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_variants: torch sees no CUDA device", file=sys.stderr)
         return 2
     print(_card(), flush=True)
-    libs = _build_all(args.parent)
+    libs = _build_all(args.parent, sorted({TIMED[k] for k in args.only}), args.ptxas)
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    for shape in WARP_SHAPES:
+    if "cost_volume_f32" in args.only:
+        _time_cost_volume(libs["cost_volume"], g, stream, _time_ms, _hbm_rate(torch.cuda.get_device_name(0)))
+    for shape in WARP_SHAPES if "bilinear_warp" in args.only else ():
         n, h, w, c = shape
         img = torch.randn(shape, generator=g, device="cuda").bfloat16()
         flow = (torch.rand((n, h, w, 2), generator=g, device="cuda") * 24 - 12).bfloat16()
@@ -128,6 +218,8 @@ def main() -> int:
             times.append((name, _time_ms(run)))
         print(json.dumps({"kernel": "bilinear_warp", "shape": shape, "ms": times}), flush=True)
 
+    if "vwarp" not in args.only:
+        return 0
     d = 127
     coarse = torch.rand((48, 1, 12, 16), generator=g, device="cuda") * 2 * d - d
     for c in (3, 1):
