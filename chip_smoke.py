@@ -1103,6 +1103,18 @@ def backward_kernel_phase(hbm: float):
         for shape in levels:
             cv_case(shape, dtype, 4, timed=True, launches=1 if dtype == torch.float32 else 0)
     cv_case(hd_level, torch.bfloat16, 4, timed=True)  # the 720p level, beside the forward's row
+    # An image's gradients are the same to the bit alone, two at a time and
+    # in the batch of 8 at the finest level: the kernel's tile, and with it
+    # the order of a pixel's sums, follows from the image size alone.
+    f1, f2 = randn(levels[0], torch.float32), randn(levels[0], torch.float32)
+    g = randn(levels[0][:3] + (81,), torch.float32)
+    whole = cost_volume_backward(g, f1, f2, 4)
+    for lo, hi in ((0, 1), (3, 5), (7, 8)):
+        part = cost_volume_backward(g[lo:hi].contiguous(), f1[lo:hi].contiguous(), f2[lo:hi].contiguous(), 4)
+        if not all(torch.equal(a, b[lo:hi]) for a, b in zip(part, whole)):
+            raise AssertionError(f"cost_volume_bwd {levels[0]}: images {lo}..{hi - 1} alone differ from the batch")
+    _say(f"  cost_volume_bwd {levels[0]} f32: df1, df2 of images 0, 3..4, 7 alone equal to the bit to the batch's")
+    del f1, f2, g, whole, part
     for dtype in (torch.float32, torch.bfloat16):
         for shape in levels[:4]:
             warp_case(shape, dtype, dtype, timed=True, launches=1 if dtype == torch.float32 else 0)

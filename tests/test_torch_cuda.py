@@ -9,6 +9,7 @@ Tolerances: f32 outputs 1e-5 abs (same taps and weights, rounding apart);
 bf16 outputs one bf16 ulp (both versions sum in f32 and round once).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -390,7 +391,29 @@ def test_blocked_matches_whole_clip_on_the_card(cuda, method, as_uint8):
 # all-reduces on CUDA tensors. 64 frames are a multiple of n_time *
 # block_len for 1, 2 and 4 ranks, so nothing is padded and the output is
 # `stabilize`'s: 2e-3 on every value, as on the CPU.
+#
+# Both paths flow the same 8 chunks of 8 pairs (`clip_flow` pads
+# `stabilize`'s 63 pairs with a repeat of the last frame, `extend_right` does
+# the same on the last rank). With cuDNN's default algorithms the f32
+# convolutions are not deterministic: the same chunk flowed twice differs in
+# the last bits of a third of its values or more, the affine fit's Huber
+# weights and median carry that further, and the 'auto' crop's
+# validity threshold (`maskz > 0.999`) can then flip a border pixel between
+# image and border colour (0.6 at one pixel in some runs). Both paths
+# therefore run with `cudnn.deterministic`, and
+# `test_flow_of_a_chunk_does_not_depend_on_its_batch` holds the flows they
+# compare.
 SHARDED_METHODS = ("sparse_ls", "affine")
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for one test, the flag restored
+    after it."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = was
 
 
 def _sharded_case(method):
@@ -419,8 +442,45 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def test_flow_of_a_chunk_does_not_depend_on_its_batch(cuda):
+    """The sharded test's clip: its last real pairs (56..62) flowed as a
+    chunk of 7 and inside a chunk of 8 (the last frame repeated, as both
+    pipelines pad), each twice. Under `cudnn.deterministic` the four flows
+    are equal to the bit. Under cuDNN's default algorithms the chunk of 8
+    against itself differs as much as the chunk of 7 against the chunk of 8:
+    both within 1e-6 px, the last bits of f32 sums of some hundreds of terms
+    on values of a few px; the cause is the algorithms, not the batch."""
+    from vstab_torch.core.precision import pin_full_f32
+    from vstab_torch.flow.pwcnet import estimate_flow_pairs
+
+    cfg, params, frames = _sharded_case("affine")
+    params = {k: v.to(cuda) for k, v in params.items()}
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=cuda)
+    eight = torch.cat([frames[56:], frames[-1:]])
+    assert frames.shape[0] == 64 and eight.shape[0] == 9
+    was = torch.backends.cudnn.deterministic
+    try:
+        for deterministic in (True, False):
+            torch.backends.cudnn.deterministic = deterministic
+            with torch.inference_mode():
+                pin_full_f32()
+                flows7 = [estimate_flow_pairs(params, frames[56:], cfg.flow) for _ in range(2)]
+                flows8 = [estimate_flow_pairs(params, eight, cfg.flow)[:7] for _ in range(2)]
+            pairs = [(flows7[0], flows7[1]), (flows8[0], flows8[1]), (flows7[0], flows8[0])]
+            print(json.dumps({"deterministic": deterministic, "7 vs 7, 8 vs 8, 7 vs 8": [
+                {"max_abs": float((a - b).abs().max()), "values_apart": int((a != b).sum())} for a, b in pairs]}))
+            for a, b in pairs:
+                assert a.shape == (7, 48, 64, 2)
+                if deterministic:
+                    assert torch.equal(a, b)
+                else:
+                    torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 @pytest.mark.parametrize("method", SHARDED_METHODS)
-def test_stabilize_sharded_one_nccl_rank_matches_stabilize(cuda, method):
+def test_stabilize_sharded_one_nccl_rank_matches_stabilize(cuda, deterministic_cudnn, method):
     import torch.distributed as dist
 
     import vstab_torch
@@ -448,6 +508,7 @@ def _sharded_rank(rank: int, world: int, port: int, outdir: str) -> None:
     from vstab_torch.core.config import DistConfig
     from vstab_torch.dist import initialize, make_mesh, shutdown, stabilize_sharded
 
+    torch.backends.cudnn.deterministic = True  # as for `stabilize` in the test: see above
     initialize(DistConfig(coordinator_address=f"127.0.0.1:{port}", num_processes=world, process_id=rank))
     try:
         mesh = make_mesh(DistConfig(time_axis=world))
@@ -467,7 +528,7 @@ def _sharded_rank(rank: int, world: int, port: int, outdir: str) -> None:
 # Several cards: one process a card, brought up by `initialize` with the
 # port's backend, so the halo's point-to-point exchange and the Schur
 # solve's messages run over NCCL between cards.
-def test_stabilize_sharded_on_several_cards_matches_stabilize(cuda, tmp_path):
+def test_stabilize_sharded_on_several_cards_matches_stabilize(cuda, deterministic_cudnn, tmp_path):
     import numpy as np
 
     import vstab_torch
@@ -557,6 +618,79 @@ def test_cost_volume_backward_matches_plain(cuda, shape, radius, dtype):
     a1, a2 = torch.autograd.grad(cost_volume_plain(f1, f2, radius), (f1, f2), gout)
     _assert_grad_close(df1, a1, dtype)
     _assert_grad_close(df2, a2, dtype)
+
+
+# Aligned f32 and bf16 with C % 4 == 0 go to the tiled cost_volume_bwd_kernel,
+# whose tile the launch picks from the image size: the trainer's five levels
+# reach the 4x16 (48x64), 2x16 (24x32), 1x8 (12x16) and 1x4 (6x8, 3x4) tiles
+# at r=4, (1, 33, 47, 36) ragged tile edges and a chunk of one channel vector
+# after a whole one.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [1, 3, 4])
+@pytest.mark.parametrize(
+    "shape", [(2, 48, 64, 32), (2, 24, 32, 64), (2, 12, 16, 96), (2, 6, 8, 128), (2, 3, 4, 196), (1, 33, 47, 36)]
+)
+def test_cost_volume_backward_tiles_match_plain(cuda, shape, radius, dtype):
+    from vstab_torch.kernels import KERNELS_BWD, cost_volume_backward, cost_volume_backward_plain
+
+    g = torch.Generator().manual_seed(radius + shape[1])
+    nd = (2 * radius + 1) ** 2
+    f1 = torch.randn(shape, generator=g).to(cuda, dtype)
+    f2 = torch.randn(shape, generator=g).to(cuda, dtype)
+    gout = (torch.randn(shape[:3] + (nd,), generator=g) * torch.linspace(0.2, 1.8, nd)).to(cuda, dtype)
+    reset_launches()
+    df1, df2 = cost_volume_backward(gout, f1, f2, radius)
+    assert KERNELS_BWD["cost_volume_bwd"].launches == 1
+    p1, p2 = cost_volume_backward_plain(gout, f1, f2, radius)
+    _assert_grad_close(df1, p1, dtype)
+    _assert_grad_close(df2, p2, dtype)
+    # one gradient alone: the same blocks, the same bits
+    assert torch.equal(cost_volume_backward(gout, f1, f2, radius, need=(True, False))[0], df1)
+    assert torch.equal(cost_volume_backward(gout, f1, f2, radius, need=(False, True))[1], df2)
+
+
+@pytest.mark.parametrize(
+    "shape", [(8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 128), (8, 3, 4, 196)]
+)
+def test_cost_volume_backward_does_not_depend_on_the_batch(cuda, shape):
+    """An image's df1 and df2 are the same to the bit alone, with one other
+    image or in a batch of 8, at the trainer's five levels: the kernel picks
+    its tile, and with it the order of each pixel's sums, from the image size
+    alone, so that half-batches agree with the whole batch."""
+    from vstab_torch.kernels import cost_volume_backward
+
+    g = torch.Generator().manual_seed(10)
+    f1 = torch.randn(shape, generator=g).to(cuda)
+    f2 = torch.randn(shape, generator=g).to(cuda)
+    gout = torch.randn(shape[:3] + (81,), generator=g).to(cuda)
+    whole = cost_volume_backward(gout, f1, f2, 4)
+    for lo, hi in ((0, 1), (3, 5), (7, 8)):
+        part = cost_volume_backward(gout[lo:hi].contiguous(), f1[lo:hi].contiguous(), f2[lo:hi].contiguous(), 4)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[lo:hi])
+
+
+# Views that start 4 bytes into their storage (data_ptr % 16 == 4: f32 and
+# bf16 take the element kernel) and, for bf16, 8 bytes (the tiled kernel with
+# 8-byte copies from a base that is not 16-byte aligned).
+@pytest.mark.parametrize(
+    "dtype, offset", [(torch.float32, 1), (torch.bfloat16, 2), (torch.bfloat16, 4)]
+)
+@pytest.mark.parametrize("shape", [(2, 17, 24, 16), (4, 48, 64, 32)])
+def test_cost_volume_backward_takes_unaligned_views(cuda, shape, dtype, offset):
+    from vstab_torch.kernels import cost_volume_backward, cost_volume_backward_plain
+
+    g = torch.Generator().manual_seed(11)
+    size = shape[0] * shape[1] * shape[2] * shape[3]
+    flat = torch.randn((2, offset + size), generator=g).to(cuda, dtype)
+    f1 = flat[0, offset:].view(shape)
+    f2 = flat[1, offset:].view(shape)
+    assert f1.is_contiguous() and f1.data_ptr() % 16 == offset * f1.element_size()
+    gout = torch.randn(shape[:3] + (81,), generator=g).to(cuda, dtype)
+    df1, df2 = cost_volume_backward(gout, f1, f2, 4)
+    p1, p2 = cost_volume_backward_plain(gout, f1, f2, 4)
+    _assert_grad_close(df1, p1, dtype)
+    _assert_grad_close(df2, p2, dtype)
 
 
 def test_cost_volume_backward_one_input_and_strided_gradient(cuda):

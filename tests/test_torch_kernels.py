@@ -228,9 +228,12 @@ def test_cpu_path_launches_no_kernel():
 # The plain backward versions are the oracle of the backward kernels on the
 # card, so they are held here to autograd of the plain forward and to the
 # reference's own gradient. g is scaled by a ramp over the window, so that a
-# transposed shift in df2 would show.
+# transposed shift in df2 would show. (1, 3, 4, 196) and (1, 6, 8, 128) are
+# the trainer's two coarsest levels, where the window is wider than the image.
 @pytest.mark.parametrize("radius", [1, 2, 4])
-@pytest.mark.parametrize("shape", [(2, 9, 11, 3), (2, 7, 20, 21), (1, 12, 10, 32)])
+@pytest.mark.parametrize(
+    "shape", [(2, 9, 11, 3), (2, 7, 20, 21), (1, 12, 10, 32), (1, 3, 4, 196), (1, 6, 8, 128)]
+)
 def test_cost_volume_backward_plain_matches_autograd_and_jax_vjp(shape, radius):
     rng = np.random.default_rng(radius)
     nd = (2 * radius + 1) ** 2

@@ -25,7 +25,12 @@ as under `no_grad` or `inference_mode`, that is the forward launch and nothing
 else), whose backward is `cost_volume_backward`: it launches
 `vstab_cost_volume_bwd` of the same source (two gathers over the window, no
 atomics; no TPU counterpart, the JAX trainer differentiates the XLA
-formulation). `cost_volume_backward_plain`
+formulation). For C % 4 == 0 on aligned tensors that is the tiled
+`cost_volume_bwd_kernel`: a block stages g for its tile and the other
+feature map's halo band in shared memory, a thread sums 4 pixels x 4
+channels over the window, the window's rows split over warps at the coarse
+levels; the tile follows from the image size alone, so an image's gradient
+does not depend on the batch. `cost_volume_backward_plain`
 writes the same gradients out with shifts; on the CPU autograd of the plain
 forward is what runs.
 """

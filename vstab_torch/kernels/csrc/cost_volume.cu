@@ -612,16 +612,58 @@ int launch(const void* f1, const void* f2, void* out, int n, int h, int w, int c
 //   df1[n,y,x,c]  = (1/C) sum_d g[n,y,x,k(d)]       * f2[n,y+dy,x+dx,c]
 //   df2[n,y,x,c]  = (1/C) sum_d g[n,y-dy,x-dx,k(d)] * f1[n,y-dy,x-dx,c]
 // over d = (dy,dx) in [-R,R]^2, terms whose source pixel lies outside the
-// image dropped (the forward's zero halo). Both are gathers, so no atomics:
-// a thread owns V consecutive channels of one output pixel, walks the
-// (2R+1)^2 displacements, reads one g value (the threads of a pixel read the
-// same address: a broadcast) and one V-wide vector of the other feature map,
-// and keeps V sums in f32 registers. Products and sums in f32, one rounding
-// to the feature dtype. Bound on the H100: bytes (g, f1, f2 read once, df1,
-// df2 written once); every neighbour vector is read (2R+1)^2 times, which
-// the L1 and the L2 serve. V is the widest vector that C and the addresses
-// allow: 8 bf16 or 4 f32 (16 bytes), 4 bf16 (8 bytes), else 1.
-// One launch computes both gradients (blockIdx.y picks which) or one of them.
+// image dropped (the forward's zero halo). Both are gathers over the window,
+// so no atomics. Products and sums in f32, one rounding to the feature
+// dtype. One launch computes both gradients (blockIdx.y picks which) or the
+// one asked for.
+//
+// Bound on the H100: bytes (g, f1, f2 read once, df1, df2 written once; g,
+// with its (2R+1)^2 values a pixel, is most of them up to C = 64); the
+// 4*(2R+1)^2*C operations a pixel fit under that at the f32 rate. What kept
+// the first version (one thread a pixel's channel vector, walking the window)
+// at 12 to 120 times that bound: every neighbour vector fetched once for each
+// of the (2R+1)^2 displacements that use it, df2's g values gathered from 81
+// pixels' rows, 64-bit index arithmetic and two bounds checks a displacement,
+// and at the trainer's coarse levels a few thousand threads with a serial
+// chain of 81 dependent loads each.
+//
+// cost_volume_bwd_kernel (C % 4 == 0; feature maps, gradients and g 16-byte
+// aligned in f32, 8-byte in bf16) carries the forward's design over to the
+// two gathers. A block owns a tile of TH rows x 4*NXG pixels of one image
+// and one of the two gradients. Through cp.async it stages in shared memory,
+// once, the g values the tile needs, as they are: for df1 the tile's own
+// rows of (2R+1)^2 values a pixel; for df2, for each dy, the window row of
+// 2R+1 values of g at (y-dy, x-dx) for every column of the band, so that
+// df2's gather becomes reads at fixed offsets. Through a two-stage cp.async
+// ring it stages the other feature map's halo band, (TH+2R) x (4*NXG+2R)
+// pixels, one channel chunk at a time (the 32/NXG lanes of a pixel group
+// hold 4 channels each), zero outside the image. A thread owns 4
+// consecutive pixels x 4 channels; at each dy it reads the 4+2R band
+// vectors of its row once and uses each for every (pixel, dx) pair it
+// meets, the g values read as shared-memory broadcasts. Where the image is
+// small the window's rows are split over NDY warps, whose partial sums meet
+// in shared memory in a fixed order. Four tiles, picked from the image size
+// alone (an image's gradient is then the same to the bit alone and in a
+// batch): 4x16 pixels, NDY = 1; 2x16, NDY = 3; 1x8 and 1x4, NDY = 2R+1; the
+// first no wider than the image of which a batch of 8 images gives at
+// least 3 warps an SM. bf16 band vectors (8 bytes) are widened at the read,
+// with the band's pixel pitch padded by 16 bytes so that the two pixel
+// groups of a half-warp meet different banks.
+// What bounds it on the H100 (time_variants.py's probes, which leave one
+// part out at a time):
+// at the trainer's finest level and at 720p in bf16 the staging takes
+// about half of the time (g and the band, each re-read by neighbouring
+// tiles: the band 4.5 times and df2's g 1.5 times a pixel at 4x16), the
+// sums the rest: 4+2R band vectors and 4*(2R+1) g values read from shared
+// memory a thread and dy for 16*(2R+1) FMAs. The coarse levels sit at one
+// to two launch floors.
+//
+// cost_volume_bwd_element_kernel takes every other case (odd C, unaligned
+// views, rows over 2^31 elements): a thread owns V consecutive channels of
+// one output pixel, walks the window, reads one g value and one V-wide
+// vector of the other feature map a displacement, and keeps V sums in f32
+// registers; V is the widest vector that C and the addresses allow: 8 bf16
+// or 4 f32 (16 bytes), 4 bf16 (8 bytes), else 1.
 
 template <typename T, int V>
 struct Vec;
@@ -659,10 +701,10 @@ __device__ __forceinline__ void store_vec(T* p, const float* f) {
 // blockIdx.y == 0 computes df1, 1 when it computes df2.
 template <typename T, int V>
 __global__ void __launch_bounds__(256)
-cost_volume_bwd_kernel(const T* __restrict__ g, const T* __restrict__ f1,
-                       const T* __restrict__ f2, T* __restrict__ df1,
-                       T* __restrict__ df2, int64_t total, int h, int w, int c, int r,
-                       float inv_c, int first) {
+cost_volume_bwd_element_kernel(const T* __restrict__ g, const T* __restrict__ f1,
+                               const T* __restrict__ f2, T* __restrict__ df1,
+                               T* __restrict__ df2, int64_t total, int h, int w, int c, int r,
+                               float inv_c, int first) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const bool wrt_f2 = (first + (int)blockIdx.y) != 0;
@@ -701,8 +743,8 @@ cost_volume_bwd_kernel(const T* __restrict__ g, const T* __restrict__ f1,
 }
 
 template <typename T, int V>
-int launch_bwd_v(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h,
-                 int w, int c, int r, cudaStream_t stream) {
+int launch_bwd_element(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h,
+                       int w, int c, int r, cudaStream_t stream) {
   const int64_t total = (int64_t)n * h * w * (c / V);
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
@@ -710,9 +752,349 @@ int launch_bwd_v(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, in
   const int count = (df1 != nullptr) + (df2 != nullptr);
   if (count == 0 || blocks == 0) return 0;
   const dim3 grid((unsigned)blocks, (unsigned)count);
-  cost_volume_bwd_kernel<T, V><<<grid, threads, 0, stream>>>(
+  cost_volume_bwd_element_kernel<T, V><<<grid, threads, 0, stream>>>(
       g, f1, f2, df1, df2, total, h, w, c, r, 1.f / (float)c, df1 == nullptr ? 1 : 0);
   return vstab::launch_status();
+}
+
+// Tile of cost_volume_bwd_kernel: TH_ rows x BPX*NXG pixels, a thread BPX
+// consecutive pixels of one row x 4 channels, a warp one row at a group of
+// dy, NDY_ groups of dy (warps TH_*g .. TH_*g + TH_-1 take group g).
+constexpr int BPX = 4;
+
+template <typename T, int R, int TH_, int NXG, int NDY_>
+struct BwdCfg {
+  static constexpr int S = 2 * R + 1;
+  static constexpr int ND = S * S;
+  static constexpr int V = 4;                       // channels a lane
+  static constexpr int VB = V * (int)sizeof(T);     // bytes of a lane's vector: 16 f32, 8 bf16
+  static constexpr int KQ = 32 / NXG;               // lanes of a pixel group
+  static constexpr int CH = KQ * V;                 // channels a chunk
+  static constexpr int TH = TH_;
+  static constexpr int NDY = NDY_;
+  static constexpr int TW = BPX * NXG;              // tile columns
+  static constexpr int BH = TH_ + 2 * R;            // band rows
+  static constexpr int BW = TW + 2 * R;             // band columns
+  static constexpr int PITCH = KQ * VB + (VB == 8 ? 16 : 0);  // bytes a staged pixel
+  static constexpr int STAGE = BH * BW * PITCH;     // bytes a stage
+  // g is staged as it is, CV values a copy (4 bytes: 1 f32 or 4 bf16, since
+  // cp.async moves no fewer) from the copy-aligned address at or before the
+  // first value wanted, so that a run lands 0..CV-1 values into its place: a
+  // df1 row holds TW*ND values (and CV spare), a df2 slot S values (and
+  // CV-1 spare, rounded to CV). With CV = 4 a df2 row of BW slots is skewed
+  // by 4 values every 4 slots, so that the pixel groups of a warp meet
+  // different banks. (16-byte f32 copies were slower at the trainer's
+  // shapes: more shared memory for shifted slots, fewer blocks an SM.)
+  static constexpr int CV = sizeof(T) == 4 ? 1 : 4;
+  static constexpr int ROW1 = TW * ND + (CV > 1 ? CV : 0);            // values of a df1 row
+  static constexpr int SLOT = (S + 2 * CV - 2) / CV * CV;            // values of a df2 slot
+  static constexpr int ROW2 = BW * SLOT + (CV > 1 ? (BW + 3) / 4 * 4 : 0);  // of a df2 row of slots
+  static constexpr int G1 = TH_ * ROW1;                     // values of g for df1
+  static constexpr int G2 = S * TH_ * ROW2;                 // values of g for df2
+  static constexpr int GB = ((G1 > G2 ? G1 : G2) * (int)sizeof(T) + 15) / 16 * 16;
+  static constexpr int NTG = 32 * TH_;              // threads of a dy group
+  static constexpr int NT = NTG * NDY_;
+  static constexpr int NE = BPX;                    // float4 of a thread's sums: one a pixel
+  static constexpr int RED = (NDY_ - 1) * NE * NTG * 16;
+  // Shared memory: g, the partial sums of groups 1.., then the stages.
+  static constexpr int smem(int stages) { return GB + RED + stages * STAGE; }
+  static_assert(32 % NXG == 0 && NDY_ <= S, "a pixel group is whole lanes; a dy group is not empty");
+  static_assert(V == 4, "a thread's sums of a pixel are one float4");
+};
+
+// cp.async of BYTES (16 or fewer) that reads `src_bytes` of them and
+// zero-fills the rest (src must be a valid address all the same).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_part(void* smem, const void* gmem, int src_bytes) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(vstab::smem_addr(smem)),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(vstab::smem_addr(smem)),
+                 "l"(gmem), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+// Stage channels cb .. cb+CH-1 of the band of x (image base) that starts
+// at (y0-R, x0-R): slot (row, column, lane vector q) at
+// (row*BW + column)*PITCH + q*VB. One warp a band row; the KQ lanes of a
+// pixel copy its chunk, which lies contiguous in device memory. Pixels
+// outside the image and channels from c on are zero.
+template <class Cfg, int R, typename T>
+__device__ __forceinline__ void stage_band(unsigned char* stage, const T* __restrict__ x, int y0,
+                                           int x0, int h, int w, int c, int cb) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < Cfg::BH; r += Cfg::NT / 32) {
+    const int gy = y0 - R + r;
+    const bool row_ok = gy >= 0 && gy < h;
+    const T* src_row = x + (int64_t)(row_ok ? gy : 0) * w * c + cb;
+    unsigned char* dst_row = stage + r * Cfg::BW * Cfg::PITCH;
+    for (int i = lane; i < Cfg::BW * Cfg::KQ; i += 32) {
+      const int q = i % Cfg::KQ, px = i / Cfg::KQ;
+      const int gx = x0 - R + px;
+      const int ch = q * Cfg::V;  // from cb
+      const bool ok = row_ok && gx >= 0 && gx < w && ch < c - cb;
+      const T* src = ok ? src_row + (gx * c + ch) : x;
+      unsigned char* dst = dst_row + px * Cfg::PITCH + q * Cfg::VB;
+      cp_async_part<Cfg::VB>(dst, src, ok ? Cfg::VB : 0);
+    }
+  }
+}
+
+// Values by which p lies past a boundary of CV values (a copy's alignment).
+template <int CV, typename T>
+__device__ __forceinline__ int shift_of(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T)) & (CV - 1));
+}
+
+// Stage the tile's g values (g is the image's base) in shared memory as they
+// are, zero outside the image, one warp a staged row:
+//   df1: [row][ROW1], row r the run of TW*ND values of image row y0+r from
+//        column x0, starting shift_of<CV> of its source into the row;
+//   df2: [dyi][row][ROW2], slot `column` the S values g at (y0+row-dy,
+//        x0-R+column), entries dyi*S .. dyi*S+S-1, starting shift_of<CV>
+//        of its source into the slot: the values that tile pixel
+//        (row, column-R+dx) pairs with f1 there, read by the compute loop
+//        at fixed offsets.
+// A copy reads only the values wanted and those before them back to the
+// copy's boundary, never past the run.
+template <class Cfg, int R, bool WRT_F2, typename T>
+__device__ __forceinline__ void stage_g(T* gs, const T* __restrict__ g, int y0, int x0, int h,
+                                        int w) {
+  constexpr int S = Cfg::S, ND = Cfg::ND, ES = (int)sizeof(T);
+  constexpr int CV = Cfg::CV;
+  const int lane = threadIdx.x & 31;
+  // a valid, aligned address for the copies that read nothing
+  const T* zsrc = reinterpret_cast<const T*>(reinterpret_cast<uintptr_t>(g) & ~(uintptr_t)(CV * ES - 1));
+  if (!WRT_F2) {
+    for (int r = threadIdx.x >> 5; r < Cfg::TH; r += Cfg::NT / 32) {
+      const int y = y0 + r;
+      const int n = y < h ? min(Cfg::TW, w - x0) * ND : 0;  // values wanted
+      const T* a = g + ((int64_t)(y < h ? y : 0) * w + x0) * ND;
+      const int s = shift_of<CV>(a);
+      for (int k = lane; k < Cfg::ROW1 / CV; k += 32) {
+        const int b = (CV == 1 ? k < n : min(max(s + n - CV * k, 0), CV)) * ES;
+        cp_async_part<CV * ES>(gs + r * Cfg::ROW1 + CV * k, b ? a - s + CV * k : zsrc, b);
+      }
+    }
+  } else {
+    constexpr int PER = Cfg::SLOT / CV;  // copies a slot
+    for (int rr = threadIdx.x >> 5; rr < S * Cfg::TH; rr += Cfg::NT / 32) {
+      const int dyi = rr / Cfg::TH, y = y0 + rr % Cfg::TH + R - dyi;
+      const bool row_ok = y >= 0 && y < h;
+      const T* a0 = g + ((int64_t)(row_ok ? y : 0) * w + x0 - R) * ND + dyi * S;  // column 0's source
+      T* dst = gs + rr * Cfg::ROW2;
+      for (int i = lane; i < Cfg::BW * PER; i += 32) {
+        const int col = i / PER, k = i - col * PER;
+        const int x = x0 - R + col;
+        const T* a = a0 + col * ND;
+        const int s = shift_of<CV>(a);
+        const int b = row_ok && x >= 0 && x < w ? (CV == 1 ? 1 : min(max(s + S - CV * k, 0), CV)) * ES : 0;
+        const int skew = CV > 1 ? (col >> 2) * 4 : 0;
+        cp_async_part<CV * ES>(dst + col * Cfg::SLOT + skew + CV * k, b ? a - s + CV * k : zsrc, b);
+      }
+    }
+  }
+}
+
+// A staged g value as f32.
+__device__ __forceinline__ float g_at(const float* p) { return *p; }
+__device__ __forceinline__ float g_at(const bf16* p) { return __bfloat162float(*p); }
+
+// A staged lane vector (4 values of T) as 4 floats.
+template <typename T>
+__device__ __forceinline__ void load_staged(const unsigned char* p, float* f) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    f[0] = __uint_as_float(v.x << 16), f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16), f[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+}
+
+// One gradient of one tile: df1 (x = f2, out = df1) or df2 (x = f1, out =
+// df2), every pointer at the image's base.
+template <class Cfg, int R, bool WRT_F2, typename T>
+__device__ __forceinline__ void bwd_tile(const T* __restrict__ g, const T* __restrict__ x,
+                                         T* __restrict__ out, int h, int w, int c, int y0, int x0,
+                                         float inv_c, unsigned char* smem) {
+  constexpr int S = Cfg::S, ND = Cfg::ND, V = Cfg::V, TW = Cfg::TW, BW = Cfg::BW;
+  constexpr int PITCH = Cfg::PITCH, NDY = Cfg::NDY, NE = Cfg::NE, NTG = Cfg::NTG;
+  T* gs = reinterpret_cast<T*>(smem);
+  float4* red = reinterpret_cast<float4*>(smem + Cfg::GB);
+  unsigned char* stages = smem + Cfg::GB + Cfg::RED;
+
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int row = wid % Cfg::TH, grp = wid / Cfg::TH;
+  const int q = lane % Cfg::KQ, pc0 = BPX * (lane / Cfg::KQ);
+  const int dy_lo = grp * S / NDY, dy_hi = (grp + 1) * S / NDY;
+  const int chunks = (c + Cfg::CH - 1) / Cfg::CH;
+  const auto stage = [&](int ci) {
+    stage_band<Cfg, R, T>(stages + (ci & 1) * Cfg::STAGE, x, y0, x0, h, w, c, ci * Cfg::CH);
+    vstab::cp_async_commit();
+  };
+
+  // Chunk ci lives in stage ci % 2 and chunk ci+1 is staged before chunk ci
+  // is summed, as in cost_volume_f32_kernel; g is staged once, in the first
+  // chunk's group of copies.
+  stage_g<Cfg, R, WRT_F2, T>(gs, g, y0, x0, h, w);
+  stage(0);
+  // df1: where this thread's row of g starts in its staged row
+  const int s1 = WRT_F2 || Cfg::CV == 1 ? 0 : shift_of<Cfg::CV>(g + ((int64_t)min(y0 + row, h - 1) * w + x0) * ND);
+  for (int ci = 0; ci < chunks; ++ci) {
+    if (ci + 1 < chunks) stage(ci + 1);
+    else vstab::cp_async_commit();
+    vstab::cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* cur = stages + (ci & 1) * Cfg::STAGE;
+    const int ch = ci * Cfg::CH + q * V;  // this lane's first channel
+    float acc[BPX][V];
+#pragma unroll
+    for (int p = 0; p < BPX; ++p)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[p][k] = 0.f;
+    if (ch < c) {
+      for (int dyi = dy_lo; dyi < dy_hi; ++dyi) {
+        // df1 reads the band at (row + dy, pixel + dx) and g at the pixel;
+        // df2 at (row - dy, pixel - dx), and g there, from the dyi slice.
+        const int br = WRT_F2 ? row + 2 * R - dyi : row + dyi;
+        const unsigned char* xrow = cur + (br * BW + pc0) * PITCH + q * Cfg::VB;
+        // df1: g of pixel pc0+p at grow + p*ND + dx + R. df2: the slot of
+        // band column pc0+j at grow + j*SLOT (bf16: skewed by (j/4)*4 and
+        // shifted by (s2 + j) & 3 values), entry dx + R of it.
+        constexpr bool SKEW = Cfg::CV > 1;
+        const T* grow = WRT_F2 ? gs + (dyi * Cfg::TH + row) * Cfg::ROW2 + pc0 * Cfg::SLOT + (SKEW ? pc0 : 0)
+                               : gs + row * Cfg::ROW1 + s1 + pc0 * ND + dyi * S;
+        const int s2 = WRT_F2 && SKEW
+            ? shift_of<Cfg::CV>(g + ((int64_t)(y0 + row + R - dyi) * w + x0 - R) * ND + dyi * S) : 0;
+#pragma unroll
+        for (int j = 0; j < BPX + 2 * R; ++j) {
+          float xv[V];
+          load_staged<T>(xrow + j * PITCH, xv);
+          const T* gj = grow + j * Cfg::SLOT + (SKEW ? (j >> 2) * 4 + ((s2 + j) & 3) : 0);  // df2
+#pragma unroll
+          for (int p = 0; p < BPX; ++p) {
+            const int e = j - p;  // dx + R for df1, R - dx for df2
+            if (e >= 0 && e < S) {
+              const float gv = WRT_F2 ? g_at(gj + 2 * R - e) : g_at(grow + p * ND + e);
+#pragma unroll
+              for (int k = 0; k < V; ++k) acc[p][k] = fmaf(gv, xv[k], acc[p][k]);
+            }
+          }
+        }
+      }
+    }
+    if (NDY > 1) {
+      // The groups' partial sums meet in group 0, added in group order.
+      const int t = tid % NTG;
+      if (grp > 0) {
+#pragma unroll
+        for (int p = 0; p < BPX; ++p)
+          red[((grp - 1) * NE + p) * NTG + t] = make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+      }
+      __syncthreads();
+      if (grp == 0) {
+        for (int o = 1; o < NDY; ++o)
+#pragma unroll
+          for (int p = 0; p < BPX; ++p) {
+            const float4 b = red[((o - 1) * NE + p) * NTG + t];
+            acc[p][0] += b.x, acc[p][1] += b.y, acc[p][2] += b.z, acc[p][3] += b.w;
+          }
+      }
+    }
+    if (grp == 0 && ch < c && y0 + row < h) {
+#pragma unroll
+      for (int p = 0; p < BPX; ++p) {
+        const int xo = x0 + pc0 + p;
+        if (xo < w) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[p][k] *= inv_c;
+          store_vec<T, V>(out + ((int64_t)(y0 + row) * w + xo) * c + ch, acc[p]);
+        }
+      }
+    }
+    __syncthreads();  // this stage and the partial sums are free again
+  }
+  vstab::cp_async_wait<0>();
+}
+
+// One block a tile and a gradient: blockIdx.x runs over (image, tile row,
+// tile column), blockIdx.y over the gradients asked for (first = 0: df1
+// first, 1: df2 only).
+template <typename T, int R, int TH_, int NXG, int NDY>
+__global__ void __launch_bounds__(BwdCfg<T, R, TH_, NXG, NDY>::NT)
+cost_volume_bwd_kernel(const T* __restrict__ g, const T* __restrict__ f1,
+                       const T* __restrict__ f2, T* __restrict__ df1, T* __restrict__ df2, int h,
+                       int w, int c, float inv_c, int first) {
+  typedef BwdCfg<T, R, TH_, NXG, NDY> Cfg;
+  extern __shared__ __align__(16) unsigned char cvb_smem[];
+  const int tiles_x = (w + Cfg::TW - 1) / Cfg::TW, tiles_y = (h + TH_ - 1) / TH_;
+  const int x0 = (int)(blockIdx.x % tiles_x) * Cfg::TW;
+  const int64_t t2 = blockIdx.x / tiles_x;
+  const int y0 = (int)(t2 % tiles_y) * TH_;
+  const int64_t img = t2 / tiles_y;
+  const int64_t fo = img * h * w * c, go = img * h * w * Cfg::ND;
+  if (first + (int)blockIdx.y == 0)
+    bwd_tile<Cfg, R, false, T>(g + go, f2 + fo, df1 + fo, h, w, c, y0, x0, inv_c, cvb_smem);
+  else
+    bwd_tile<Cfg, R, true, T>(g + go, f1 + fo, df2 + fo, h, w, c, y0, x0, inv_c, cvb_smem);
+}
+
+template <typename T, int R, int TH_, int NXG, int NDY>
+int launch_bwd_tile(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h, int w,
+                    int c, cudaStream_t stream) {
+  typedef BwdCfg<T, R, TH_, NXG, NDY> Cfg;
+  const int err = vstab::allow_dynamic_smem(cost_volume_bwd_kernel<T, R, TH_, NXG, NDY>, Cfg::smem(2));
+  if (err) return err;
+  const int64_t tiles = (int64_t)n * ((h + TH_ - 1) / TH_) * ((w + Cfg::TW - 1) / Cfg::TW);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int count = (df1 != nullptr) + (df2 != nullptr);
+  if (count == 0 || tiles == 0) return 0;
+  const int smem = Cfg::smem(c > Cfg::CH ? 2 : 1);  // one stage: a single chunk
+  cost_volume_bwd_kernel<T, R, TH_, NXG, NDY><<<dim3((unsigned)tiles, (unsigned)count), Cfg::NT, smem,
+                                                 stream>>>(g, f1, f2, df1, df2, h, w, c,
+                                                           1.f / (float)c, df1 == nullptr ? 1 : 0);
+  return vstab::launch_status();
+}
+
+// The first tile (largest first) that is no wider than the image and of
+// which a batch of F32_BATCH images launches at least BWD_MIN_WARPS warps
+// for both gradients runs; where even the smallest falls short it runs all
+// the same. The image size alone picks it, so a pixel's sums do not depend
+// on the batch or on the gradients asked for.
+constexpr int64_t BWD_MIN_WARPS = 132 * 3;
+
+template <class Cfg>
+bool bwd_fills(int h, int w) {
+  const int64_t tiles = (int64_t)((h + Cfg::TH - 1) / Cfg::TH) * ((w + Cfg::TW - 1) / Cfg::TW);
+  return Cfg::TW <= w && tiles * F32_BATCH * (Cfg::NT / 32) * 2 >= BWD_MIN_WARPS;
+}
+
+template <typename T, int R>
+int launch_bwd_tiled(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h, int w,
+                     int c, cudaStream_t stream) {
+  constexpr int S = 2 * R + 1;
+  if (bwd_fills<BwdCfg<T, R, 4, 4, 1>>(h, w))
+    return launch_bwd_tile<T, R, 4, 4, 1>(g, f1, f2, df1, df2, n, h, w, c, stream);
+  if (bwd_fills<BwdCfg<T, R, 2, 4, 3>>(h, w))
+    return launch_bwd_tile<T, R, 2, 4, 3>(g, f1, f2, df1, df2, n, h, w, c, stream);
+  if (bwd_fills<BwdCfg<T, R, 1, 2, S>>(h, w))
+    return launch_bwd_tile<T, R, 1, 2, S>(g, f1, f2, df1, df2, n, h, w, c, stream);
+  return launch_bwd_tile<T, R, 1, 1, S>(g, f1, f2, df1, df2, n, h, w, c, stream);
+}
+
+template <typename T>
+int launch_bwd_tiled(const T* g, const T* f1, const T* f2, T* df1, T* df2, int n, int h, int w,
+                     int c, int r, cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch_bwd_tiled<T, 1>(g, f1, f2, df1, df2, n, h, w, c, stream);
+    case 2: return launch_bwd_tiled<T, 2>(g, f1, f2, df1, df2, n, h, w, c, stream);
+    case 3: return launch_bwd_tiled<T, 3>(g, f1, f2, df1, df2, n, h, w, c, stream);
+    default: return launch_bwd_tiled<T, 4>(g, f1, f2, df1, df2, n, h, w, c, stream);
+  }
 }
 
 inline bool all_aligned(size_t bytes, const void* a, const void* b, const void* c,
@@ -725,23 +1107,31 @@ inline bool all_aligned(size_t bytes, const void* a, const void* b, const void* 
 int launch_bwd(const void* g, const void* f1, const void* f2, void* df1, void* df2, int n,
                int h, int w, int c, int r, int dtype, cudaStream_t stream) {
   if (r < 1 || r > 4) return (int)cudaErrorInvalidValue;
+  // the tiled kernel: whole 4-channel vectors, 32-bit offsets within a row,
+  // g aligned as the feature maps (its copies move 4 values)
+  const bool tiled = c % 4 == 0 && (int64_t)w * c <= 0x7fffffffLL;
   if (dtype == VSTAB_F32) {
     const float *g_ = static_cast<const float*>(g), *a = static_cast<const float*>(f1),
                 *b = static_cast<const float*>(f2);
     float *da = static_cast<float*>(df1), *db = static_cast<float*>(df2);
-    if (c % 4 == 0 && all_aligned(16, a, b, da, db))
-      return launch_bwd_v<float, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
-    return launch_bwd_v<float, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
+    if (c % 4 == 0 && all_aligned(16, a, b, da, db)) {
+      if (tiled && all_aligned(16, g_, nullptr, nullptr, nullptr))
+        return launch_bwd_tiled<float>(g_, a, b, da, db, n, h, w, c, r, stream);
+      return launch_bwd_element<float, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
+    }
+    return launch_bwd_element<float, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
   }
   if (dtype == VSTAB_BF16) {
     const bf16 *g_ = static_cast<const bf16*>(g), *a = static_cast<const bf16*>(f1),
                *b = static_cast<const bf16*>(f2);
     bf16 *da = static_cast<bf16*>(df1), *db = static_cast<bf16*>(df2);
+    if (tiled && all_aligned(8, a, b, da, db) && all_aligned(8, g_, nullptr, nullptr, nullptr))
+      return launch_bwd_tiled<bf16>(g_, a, b, da, db, n, h, w, c, r, stream);
     if (c % 8 == 0 && all_aligned(16, a, b, da, db))
-      return launch_bwd_v<bf16, 8>(g_, a, b, da, db, n, h, w, c, r, stream);
+      return launch_bwd_element<bf16, 8>(g_, a, b, da, db, n, h, w, c, r, stream);
     if (c % 4 == 0 && all_aligned(8, a, b, da, db))
-      return launch_bwd_v<bf16, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
-    return launch_bwd_v<bf16, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
+      return launch_bwd_element<bf16, 4>(g_, a, b, da, db, n, h, w, c, r, stream);
+    return launch_bwd_element<bf16, 1>(g_, a, b, da, db, n, h, w, c, r, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-"""Time variants of the f32 cost volume, the feature warp and `vwarp`
-beside the sources as they stand, on one card.
+"""Time variants of the f32 cost volume, its backward, the feature warp and
+`vwarp` beside the sources as they stand, on one card.
 
     python -m vstab_torch.kernels.time_variants [--parent DIR] [--only KERNEL ...] [--ptxas]
 
@@ -11,12 +11,12 @@ of another `csrc/` directory, e.g. an earlier commit's unpacked with
 into `vstab_torch/_build/variants/`, each is held against the plain version
 once, and then all are timed in turns (parent, current, variants, current,
 parent) at the main path's shapes, so that every comparison is made on one
-card within one call. One JSON line per shape; for the f32 cost volume also
-one line per library with the sum of its times over the trainer's five
-levels (one launch each a training step). `--only` times some of
-`cost_volume_f32`, `bilinear_warp`, `vwarp`; `--ptxas` builds the cost
-volume with `-Xptxas -v` and prints each library's f32 kernels' registers
-and spills.
+card within one call. One JSON line per shape; for the f32 cost volume and
+its backward also one line per library with the sum of its times over the
+trainer's five levels (one launch each a training step). `--only` times
+some of `cost_volume_f32`, `cost_volume_bwd`, `bilinear_warp`, `vwarp`;
+`--ptxas` builds the cost volume with `-Xptxas -v` and prints each
+library's f32 forward and backward kernels' registers and spills.
 """
 
 from __future__ import annotations
@@ -33,16 +33,22 @@ import torch
 import torch.nn.functional as F
 
 from vstab_torch.kernels import _build
-from vstab_torch.kernels.cost_volume import cost_volume_plain
+from vstab_torch.kernels.cost_volume import cost_volume_backward_plain, cost_volume_plain
 from vstab_torch.kernels.warp import bilinear_warp_plain
 from vstab_torch.kernels.warp1d import vwarp_plain
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 # name -> (source, [(constant's definition, its replacement), ...])
 VARIANTS = {
-    # the f32 cost volume with registers planned for 2 resident blocks an SM
-    # instead of 3
-    "cv_f32_blocks2": ("cost_volume", [("F32_MAX_BLOCKS = 3", "F32_MAX_BLOCKS = 2")]),
+    # Probes of the backward (named probe_*: timed, not checked, since they
+    # leave parts of the work out on purpose): no sums, no g values read in
+    # the sums, no g staged, no band vectors read in the sums.
+    "probe_bwd_no_sums": ("cost_volume", [("    if (ch < c) {\n      for (int dyi", "    if (ch < 0) {\n      for (int dyi")]),
+    "probe_bwd_no_g_reads": ("cost_volume", [
+        ("const float gv = WRT_F2 ? g_at(gj + 2 * R - e) : g_at(grow + p * ND + e);", "const float gv = 1.f + e;")]),
+    "probe_bwd_no_g_staged": ("cost_volume", [("stage_g<Cfg, R, WRT_F2, T>(gs, g, y0, x0, h, w);", "")]),
+    "probe_bwd_no_band_reads": ("cost_volume", [
+        ("load_staged<T>(xrow + j * PITCH, xv);", "xv[0] = xv[1] = xv[2] = xv[3] = xrow[0] + j;")]),
     **{
         f"warp_{tx}x{ty}": ("warp", [("BW_TX = 128", f"BW_TX = {tx}"), ("BW_TY = 2", f"BW_TY = {ty}")])
         for tx, ty in ((256, 1), (64, 4), (128, 1), (64, 2))
@@ -59,10 +65,14 @@ WARP_SHAPES = ((8, 192, 320, 32), (8, 96, 160, 64), (8, 48, 80, 96), (8, 24, 40,
 # serving middle and finest levels of the 720p clip.
 CV_TRAIN_SHAPES = ((8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 128), (8, 3, 4, 196))
 CV_SHAPES = CV_TRAIN_SHAPES + ((8, 48, 80, 96), (8, 192, 320, 32))
+# The backward: the trainer's five levels in f32, then the 720p level in bf16.
+CV_BWD_SHAPES = tuple((s, torch.float32) for s in CV_TRAIN_SHAPES) + (((8, 192, 320, 32), torch.bfloat16),)
 # kernel timed -> its source in csrc/
-TIMED = {"cost_volume_f32": "cost_volume", "bilinear_warp": "warp", "vwarp": "warp1d"}
+TIMED = {"cost_volume_f32": "cost_volume", "cost_volume_bwd": "cost_volume", "bilinear_warp": "warp",
+         "vwarp": "warp1d"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _CV_ARGS = [_PTR] * 3 + [_INT] * 6 + [_PTR]
+_CV_BWD_ARGS = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 _WARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 2 + [_PTR]
 _VWARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _PTR]
 
@@ -105,15 +115,20 @@ def _build_all(parent, sources, ptxas):
     return libs
 
 
+_PTXAS_KERNELS = ("cost_volume_f32_kernel", "cost_volume_bwd_kernel", "cost_volume_bwd_element_kernel")
+
+
 def _print_ptxas(name, log):
-    """One JSON line per f32 cost-volume kernel in ptxas's report: its
-    template arguments (R, and for the tiled kernel TH, NXG, KS, CQ),
-    registers and spills."""
-    entry = None
+    """One JSON line per f32 cost-volume kernel and backward kernel in
+    ptxas's report: its name, template arguments (the forward: R, TH, NXG,
+    KS, CQ; the backward: R, TH, NXG, NDY after the dtype, or V), registers
+    and spills."""
+    entry = kernel = None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            entry = m.group(1) if "cost_volume_f32_kernel" in m.group(1) else None
+            kernel = next((k for k in _PTXAS_KERNELS if re.search(rf"\d{k}I", m.group(1))), None)
+            entry = m.group(1) if kernel else None
             stores = loads = None
         if entry is None:
             continue
@@ -122,8 +137,10 @@ def _print_ptxas(name, log):
         if spill:
             stores, loads = int(spill.group(1)), int(spill.group(2))
         if regs:
-            args = [int(a) for a in re.findall(r"Li(\d+)E", entry.split("cost_volume_f32_kernel", 1)[1])]
-            print(json.dumps({"ptxas": name, "kernel": "cost_volume_f32_kernel", "template_args": args,
+            rest = entry.split(kernel, 1)[1]
+            args = [int(a) for a in re.findall(r"Li(\d+)E", rest)]
+            dtype = "bf16" if "bfloat16" in rest else "f32"
+            print(json.dumps({"ptxas": name, "kernel": kernel, "dtype": dtype, "template_args": args,
                               "registers": int(regs.group(1)), "spill_stores": stores,
                               "spill_loads": loads}), flush=True)
             entry = None
@@ -167,17 +184,62 @@ def _time_cost_volume(libs, g, stream, time_ms, hbm):
         print(json.dumps({"kernel": "cost_volume_f32", "shape": shape, "bound_ms": bound_ms, "ms": times}),
               flush=True)
         if shape in CV_TRAIN_SHAPES:
-            # parent and current are timed in two turns: one sum for each
-            seen = {}
-            for name, ms in times:
-                turn = seen[name] = seen.get(name, -1) + 1
-                by_turn = sums.setdefault(name, [])
-                if turn == len(by_turn):
-                    by_turn.append(0.0)
-                by_turn[turn] += ms
+            _sum_by_turn(sums, times)
         del f1, f2, want, out
     for name, by_turn in sums.items():
         print(json.dumps({"kernel": "cost_volume_f32", "library": name,
+                          "train_levels_sum_ms_by_turn": by_turn}), flush=True)
+
+
+def _sum_by_turn(sums, times):
+    """Add one shape's times to each library's sums, one sum per turn
+    (parent and current are timed twice)."""
+    seen = {}
+    for name, ms in times:
+        turn = seen[name] = seen.get(name, -1) + 1
+        by_turn = sums.setdefault(name, [])
+        if turn == len(by_turn):
+            by_turn.append(0.0)
+        by_turn[turn] += ms
+
+
+def _time_cost_volume_bwd(libs, g, stream, time_ms, hbm):
+    """The cost volume's backward, r=4, both gradients in one launch, at
+    CV_BWD_SHAPES: every library held to `cost_volume_backward_plain` within
+    1e-5 (f32) or 2^-7 (bf16) of each gradient's largest value, then timed in
+    turns; the bound is its bytes (g, f1, f2 read, df1, df2 written) over the
+    card's memory rate `hbm`."""
+    sums = {}
+    for shape, dtype in CV_BWD_SHAPES:
+        n, h, w, c = shape
+        f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        gout = torch.randn((n, h, w, 81), generator=g, device="cuda").to(dtype)
+        want = cost_volume_backward_plain(gout, f1, f2, 4)
+        df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+        rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+        code = _build.DTYPE_CODES[dtype]
+        times = []
+        for name in _order(libs):
+            def run():
+                _call(libs[name], "vstab_cost_volume_bwd", _CV_BWD_ARGS, gout.data_ptr(), f1.data_ptr(),
+                      f2.data_ptr(), df1.data_ptr(), df2.data_ptr(), n, h, w, c, 4, code, stream)
+            df1.zero_(), df2.zero_()
+            run()
+            for got, ref in zip((df1, df2), want) if not name.startswith("probe_") else ():
+                err = float((got.float() - ref.float()).abs().max())
+                tol = rel * float(ref.float().abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"{name} cost_volume_bwd {shape}: max error {err:.3e} over {tol:.3e}")
+            times.append((name, time_ms(run)))
+        bound_ms = (gout.numel() + 4 * f1.numel()) * f1.element_size() / hbm * 1e3
+        print(json.dumps({"kernel": "cost_volume_bwd", "shape": shape, "dtype": str(dtype).split(".")[1],
+                          "bound_ms": bound_ms, "ms": times}), flush=True)
+        if dtype == torch.float32 and shape in CV_TRAIN_SHAPES:
+            _sum_by_turn(sums, times)
+        del f1, f2, gout, want, df1, df2
+    for name, by_turn in sums.items():
+        print(json.dumps({"kernel": "cost_volume_bwd", "library": name,
                           "train_levels_sum_ms_by_turn": by_turn}), flush=True)
 
 
@@ -189,7 +251,8 @@ def main() -> int:
     ap.add_argument("--parent", help="another csrc/ directory to time beside this one")
     ap.add_argument("--only", nargs="+", choices=sorted(TIMED), default=sorted(TIMED),
                     help="kernels to time (default: all)")
-    ap.add_argument("--ptxas", action="store_true", help="print the f32 cost volume's registers and spills")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print the f32 cost volume's and the backward's registers and spills")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_variants: torch sees no CUDA device", file=sys.stderr)
@@ -199,8 +262,11 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(0)
 
+    hbm = _hbm_rate(torch.cuda.get_device_name(0))
     if "cost_volume_f32" in args.only:
-        _time_cost_volume(libs["cost_volume"], g, stream, _time_ms, _hbm_rate(torch.cuda.get_device_name(0)))
+        _time_cost_volume(libs["cost_volume"], g, stream, _time_ms, hbm)
+    if "cost_volume_bwd" in args.only:
+        _time_cost_volume_bwd(libs["cost_volume"], g, stream, _time_ms, hbm)
     for shape in WARP_SHAPES if "bilinear_warp" in args.only else ():
         n, h, w, c = shape
         img = torch.randn(shape, generator=g, device="cuda").bfloat16()
