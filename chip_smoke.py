@@ -74,7 +74,11 @@ after it):
    192x256) in f32 and bf16 and at the 720p level in bf16, plus odd channel
    counts, a smaller radius, flow off every edge, and the clipped-flow case
    (zero flow gradient where the forward clipped); timed beside the plain
-   version and, for the warp, `F.grid_sample`'s backward;
+   version and, for the warp, `F.grid_sample`'s backward; the photometric
+   loss's flow-only warp gradient; at the finest trainer level both kernels'
+   gradients of an image alone equal to the bit to the batch of 8's, and the
+   warp's equal to the bit in two calls, one kernel and nothing else in a
+   CUDA-graph capture of a call, and the wrapper's host time a call;
 13. train: the default `FlowConfig` in f32 from `init_params(0)`, batch 8 at
    192x256, 64 scenes: on the first batch every parameter's gradient through
    the kernels against the same loss with the plain versions swapped in on
@@ -964,8 +968,7 @@ def schur_check():
 
 _TRAIN_HW, _TRAIN_BATCH = (192, 256), 8
 # Gradient tolerances, relative to the largest value of the gradient compared:
-# f32 1e-5 (another summation order; the warp's image gradient is a sum of
-# atomic adds in an order that varies), bf16 one bf16 ulp (both sum in f32 and
+# f32 1e-5 (another summation order), bf16 one bf16 ulp (both sum in f32 and
 # round once).
 _GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 
@@ -988,6 +991,50 @@ def _dt(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
+def _graph_nodes(run) -> list:
+    """The device work of one call of `run`, exactly: a CUDA-graph capture of
+    the call, with nothing run, and the type of each node the graph holds
+    (CUDA's CUgraphNodeType: 0 a kernel, 1 a copy, 2 a memset, ...). A
+    call runs once first, so that what it sets up once stays out."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"CUDA driver call failed ({err})")
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        run()
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)))
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        types.append(kind.value)
+    del graph
+    return types
+
+
+def _host_us(run, calls: int = 1000) -> float:
+    """Host time a call: the wall time of `calls` calls issued back to back,
+    read before the device is waited for, over `calls` (microseconds)."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def backward_kernel_phase(hbm: float):
     """Checks and times the two backward kernels; returns (rows, per_shape) like
     `kernel_phase`. A kernel's first row is the finest level of a training
@@ -996,7 +1043,7 @@ def backward_kernel_phase(hbm: float):
         KERNELS_BWD, bilinear_warp, bilinear_warp_backward, bilinear_warp_backward_plain, bilinear_warp_plain,
         cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain,
     )
-    from vstab_torch.kernels.warp import UNBOUNDED
+    from vstab_torch.kernels.warp import ROUTE_GATHER, ROUTE_SCATTER, UNBOUNDED, backward_route
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     per_shape, rows = [], {}
@@ -1086,16 +1133,78 @@ def backward_kernel_phase(hbm: float):
         library = lambda: torch.ops.aten.grid_sampler_2d_backward(
             g_nchw, img_nchw, grid, 0, 1, True, (True, True))
         isz, fsz = img.element_size(), flow.element_size()
+        # g, img, flow read; dimg and dflow written, each in its own dtype
+        moved = 3 * img.numel() * isz + 2 * flow.numel() * fsz
         per_shape.append(dict(
             kernel="bilinear_warp_bwd", path="train",
             shape=list(shape) + [_dt(dtype), f"{_dt(flow_dtype)} flow in +-{amp:g}"],
             launches=launches, max_abs_err=err, ms=_time_ms(run),
             plain_ms=_time_ms(lambda: bilinear_warp_backward_plain(g, img.detach(), flow.detach()), iters=5),
-            # g, img, flow read; dimg zeroed (f32) and written; dflow written
-            bytes=2 * img.numel() * isz + 2 * flow.numel() * fsz + img.numel() * (4 + isz), flops=None,
-            library_ms=_time_ms(library),
+            bytes=moved, flops=None, library_ms=_time_ms(library),
+            # the bound with the scatter's f32 buffer zeroed and written on
+            # top, as the first version's rows counted it
+            bound_ms_with_f32_buffer=(moved + 4 * img.numel()) / hbm * 1e3,
         ))
         return err, share
+
+    def warp_bits(shape, dtype):
+        """The gather's gradients at the trainer's finest warp level: equal
+        to the bit in two calls, and for images 0, 3..4 and 7 alone against
+        the batch of 8; a call captured in a CUDA graph holds one kernel and
+        nothing else (no memset, no cast); the wrapper's host time a call."""
+        n, h, w, _ = shape
+        img, g = randn(shape, dtype), randn(shape, dtype)
+        flow = ((torch.rand((n, h, w, 2), generator=gen, device="cuda") * 2 - 1) * 7.9).to(dtype)
+        name = f"bilinear_warp_bwd {shape} {_dt(dtype)}"
+        if backward_route(g, img, flow, 8, (True, True)) != ROUTE_GATHER:
+            raise AssertionError(f"{name}: the network's warp does not take the gather")
+        whole = bilinear_warp_backward(g, img, flow, 8)
+        if not all(torch.equal(a, b) for a, b in zip(bilinear_warp_backward(g, img, flow, 8), whole)):
+            raise AssertionError(f"{name}: two calls differ")
+        for lo, hi in ((0, 1), (3, 5), (7, 8)):
+            part = bilinear_warp_backward(g[lo:hi].contiguous(), img[lo:hi].contiguous(),
+                                          flow[lo:hi].contiguous(), 8)
+            if not all(torch.equal(a, b[lo:hi]) for a, b in zip(part, whole)):
+                raise AssertionError(f"{name}: images {lo}..{hi - 1} alone differ from the batch")
+        call = lambda: bilinear_warp_backward(g, img, flow, 8)
+        nodes = _graph_nodes(call)
+        host = _host_us(call)
+        _say(f"  {name}: dimg, dflow equal to the bit in two calls and for images 0, 3..4, 7 alone "
+             f"and in the batch; the device nodes of one call (0 = kernel): {nodes}; "
+             f"host {host:.2f} us a call (1000 calls)")
+        if nodes != [0]:
+            raise AssertionError(f"{name}: a call launches {nodes}, not one kernel and nothing else")
+
+    def flow_only_case(shape, timed):
+        """The photometric loss's call: C = 3, UNBOUNDED, the flow's
+        gradient alone (the first version with no image gradient: a gather),
+        against the plain version."""
+        n, h, w, c = shape
+        img, g = randn(shape, torch.float32), randn(shape, torch.float32)
+        flow = (torch.rand((n, h, w, 2), generator=gen, device="cuda") * 2 - 1) * 30.0
+        name = f"bilinear_warp_bwd {shape} f32 flow only, UNBOUNDED"
+        if backward_route(g, img, flow, UNBOUNDED, (False, True)) != ROUTE_SCATTER:
+            raise AssertionError(f"{name}: not the first version's route")
+        run = lambda: bilinear_warp_backward(g, img, flow, UNBOUNDED, need=(False, True))
+        before = KERNELS_BWD["bilinear_warp_bwd"].launches
+        none, dflow = run()
+        if none is not None or KERNELS_BWD["bilinear_warp_bwd"].launches != before + 1:
+            raise AssertionError(f"{name}: not one launch and no image gradient")
+        err = _check_grad(f"{name} dflow vs plain", dflow, bilinear_warp_backward_plain(g, img, flow)[1])
+        if timed:
+            # the library's: grid_sample's backward, the grid's gradient alone
+            grid = _grid(h, w, flow[..., 0], flow[..., 1], torch.float32)
+            g_nchw, img_nchw = g.permute(0, 3, 1, 2), img.permute(0, 3, 1, 2)
+            library = lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, img_nchw, grid, 0, 1, True, (False, True))
+            per_shape.append(dict(
+                kernel="bilinear_warp_bwd", path="train photometric", shape=list(shape) + ["f32", "flow only"],
+                launches=0, max_abs_err=err, ms=_time_ms(run),
+                plain_ms=_time_ms(lambda: bilinear_warp_backward_plain(g, img, flow), iters=5),
+                # g, img, flow read; dflow written
+                bytes=2 * img.numel() * 4 + 2 * flow.numel() * 4, flops=None, library_ms=_time_ms(library),
+            ))
+        return err
 
     # A training step launches each backward kernel once a level: the cost
     # volume at five, the feature warp at the four finest. f32 rows first.
@@ -1119,6 +1228,9 @@ def backward_kernel_phase(hbm: float):
         for shape in levels[:4]:
             warp_case(shape, dtype, dtype, timed=True, launches=1 if dtype == torch.float32 else 0)
     warp_case(hd_level, torch.bfloat16, torch.bfloat16, timed=True)
+    flow_only_case((levels[0][0], levels[0][1], levels[0][2], 3), timed=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        warp_bits(levels[0], dtype)
     # Checked, not timed: channel counts off the vector widths, a smaller
     # radius, mixed dtypes, flow off every edge, the 3-channel unclipped warp
     # of the photometric loss, and a flow half of which the forward clips.

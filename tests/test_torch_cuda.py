@@ -721,21 +721,49 @@ def test_cost_volume_backward_one_input_and_strided_gradient(cuda):
         cost_volume_backward(gout.contiguous(), f1.detach(), f2.detach(), 3)  # g is not a radius-3 volume
 
 
-# Flow inside +-8 so that the kernel's clip is not in play (the plain version
-# has none), pointing off every edge in the corners; all four dtype pairs.
+# Flow inside +-max_disp so that the kernel's clip is not in play (the plain
+# version has none), pointing off every edge in the corners; all four dtype
+# pairs; channel counts on and off the vector length (4 f32, 8 bf16: 3, 21,
+# bf16 4 and bf16 196 are off it); windows of max_disp 1, 4, 8 and 15 (the
+# largest the gather takes); an image that starts 4 bytes into its storage;
+# dimg under UNBOUNDED (flow in +-12); and max_disp 15 on a tall image 8
+# pixels wide, where one vector a pixel (f32 C = 4, bf16 C = 8) would want a
+# tile of 4 rounds larger than a block's shared memory: it takes the largest
+# that fits. The gather serves all but the unaligned image and UNBOUNDED
+# where C allows; the scatter those two.
+_WARP_BWD_CASES = [
+    (1, 0, (19, 24)), (4, 0, (19, 24)), (8, 0, (19, 24)), (8, 4, (19, 24)), ("unbounded", 0, (19, 24)),
+    (15, 0, (19, 24)), (15, 0, (8192, 8)),
+]
+
+
 @pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [3, 21, 32, 96])
-def test_bilinear_warp_backward_matches_plain(cuda, c, dtype, flow_dtype):
-    from vstab_torch.kernels import KERNELS_BWD, bilinear_warp_backward_plain
+@pytest.mark.parametrize("c", [3, 4, 8, 21, 32, 64, 96, 128, 196])
+@pytest.mark.parametrize("max_disp,offset,hw", _WARP_BWD_CASES)
+def test_bilinear_warp_backward_matches_plain(cuda, c, dtype, flow_dtype, max_disp, offset, hw):
+    from vstab_torch.kernels import KERNELS_BWD, bilinear_warp_backward, bilinear_warp_backward_plain
+    from vstab_torch.kernels import warp as W
 
     g = torch.Generator().manual_seed(c)
-    n, h, w = 2, 19, 24
-    img = torch.randn((n, h, w, c), generator=g).to(cuda, dtype).requires_grad_()
-    flow = (_edge_flow(g, n, h, w) * (7.9 / 12)).clamp(-7.9, 7.9).to(cuda, flow_dtype).requires_grad_()
+    n, (h, w) = 2, hw
+    if max_disp == "unbounded":
+        max_disp, flow = W.UNBOUNDED, _edge_flow(g, n, h, w)
+    else:
+        amp = 0.99 * max_disp
+        flow = (_edge_flow(g, n, h, w) * (amp / 12)).clamp(-amp, amp)
+    flow = flow.to(cuda, flow_dtype).requires_grad_()
+    size = n * h * w * c
+    skip = offset // torch.tensor([], dtype=dtype).element_size()
+    img = torch.empty(skip + size, dtype=dtype, device=cuda)[skip:].view(n, h, w, c)
+    img.copy_(torch.randn((n, h, w, c), generator=g)).requires_grad_()
+    assert img.data_ptr() % 16 == offset
     gout = torch.randn((n, h, w, c), generator=g).to(cuda, dtype)
+    vector = c % (4 if dtype == torch.float32 else 8) == 0
+    want_route = W.ROUTE_GATHER if vector and max_disp <= 15 and offset == 0 else W.ROUTE_SCATTER
+    assert W.backward_route(gout, img.detach(), flow.detach(), max_disp, (True, True)) == want_route
     reset_launches()
-    out = bilinear_warp(img, flow, 8)
+    out = bilinear_warp(img, flow, max_disp)
     dimg, dflow = torch.autograd.grad(out, (img, flow), gout)
     assert KERNELS["bilinear_warp"].launches == 1 and KERNELS_BWD["bilinear_warp_bwd"].launches == 1
     pimg, pflow = bilinear_warp_backward_plain(gout, img.detach(), flow.detach())
@@ -747,6 +775,64 @@ def test_bilinear_warp_backward_matches_plain(cuda, c, dtype, flow_dtype):
     aimg, aflow = torch.autograd.grad(bilinear_warp_plain(img32, flow32), (img32, flow32), gout.float())
     _assert_grad_close(dimg, aimg.to(dtype), dtype)
     _assert_grad_close(dflow, aflow.to(flow_dtype), flow_dtype)
+    # one gradient at a time: dflow alone through the first version with no
+    # image gradient (a gather there), dimg alone through the same route as
+    # both (on the gather, the same bits)
+    args = (gout, img.detach(), flow.detach(), max_disp)
+    assert W.backward_route(*args, (False, True)) == W.ROUTE_SCATTER
+    none_img, only_flow = bilinear_warp_backward(*args, need=(False, True))
+    only_img, none_flow = bilinear_warp_backward(*args, need=(True, False))
+    assert none_img is None and none_flow is None
+    _assert_grad_close(only_flow, pflow, flow_dtype)
+    _assert_grad_close(only_img, pimg, dtype)
+    if want_route == W.ROUTE_GATHER:
+        assert torch.equal(only_img, dimg)
+
+
+_TRAIN_WARP_LEVELS = [(8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 128)]
+
+
+def _train_warp_inputs(cuda, shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    n, h, w, _ = shape
+    img = torch.randn(shape, generator=g).to(cuda, dtype)
+    flow = ((torch.rand((n, h, w, 2), generator=g) * 2 - 1) * 7.9).to(cuda, dtype)
+    gout = torch.randn(shape, generator=g).to(cuda, dtype)
+    return gout, img, flow
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _TRAIN_WARP_LEVELS)
+def test_bilinear_warp_backward_is_deterministic(cuda, shape, dtype):
+    """Two calls at the trainer's four warp levels give dimg and dflow equal
+    to the bit: the gather adds each source pixel's contributors in
+    increasing output index, with no atomics."""
+    from vstab_torch.kernels import bilinear_warp_backward
+    from vstab_torch.kernels import warp as W
+
+    gout, img, flow = _train_warp_inputs(cuda, shape, dtype, 12)
+    assert W.backward_route(gout, img, flow, 8, (True, True)) == W.ROUTE_GATHER
+    first = bilinear_warp_backward(gout, img, flow, 8)
+    second = bilinear_warp_backward(gout, img, flow, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", _TRAIN_WARP_LEVELS)
+def test_bilinear_warp_backward_does_not_depend_on_the_batch(cuda, shape):
+    """An image's dimg and dflow are the same to the bit alone, with one
+    other image or in a batch of 8, at the trainer's four f32 warp levels:
+    the order of each sum follows from the flow alone, not from the tile or
+    the batch, so that half-batches agree with the whole batch."""
+    from vstab_torch.kernels import bilinear_warp_backward
+
+    gout, img, flow = _train_warp_inputs(cuda, shape, torch.float32, 13)
+    whole = bilinear_warp_backward(gout, img, flow, 8)
+    for lo, hi in ((0, 1), (3, 5), (7, 8)):
+        part = bilinear_warp_backward(
+            gout[lo:hi].contiguous(), img[lo:hi].contiguous(), flow[lo:hi].contiguous(), 8)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[lo:hi])
 
 
 def test_bilinear_warp_backward_is_zero_where_the_flow_was_clipped(cuda):

@@ -1,5 +1,5 @@
-"""Time variants of the f32 cost volume, its backward, the feature warp and
-`vwarp` beside the sources as they stand, on one card.
+"""Time variants of the f32 cost volume, its backward, the feature warp, its
+backward and `vwarp` beside the sources as they stand, on one card.
 
     python -m vstab_torch.kernels.time_variants [--parent DIR] [--only KERNEL ...] [--ptxas]
 
@@ -11,12 +11,18 @@ of another `csrc/` directory, e.g. an earlier commit's unpacked with
 into `vstab_torch/_build/variants/`, each is held against the plain version
 once, and then all are timed in turns (parent, current, variants, current,
 parent) at the main path's shapes, so that every comparison is made on one
-card within one call. One JSON line per shape; for the f32 cost volume and
-its backward also one line per library with the sum of its times over the
-trainer's five levels (one launch each a training step). `--only` times
-some of `cost_volume_f32`, `cost_volume_bwd`, `bilinear_warp`, `vwarp`;
-`--ptxas` builds the cost volume with `-Xptxas -v` and prints each
-library's f32 forward and backward kernels' registers and spills.
+card within one call. One JSON line per shape; for the f32 cost volume, its
+backward and the feature warp's backward also one line per library with the
+sum of its times over the trainer's levels (one launch each a training
+step). `--only` times some of `cost_volume_f32`, `cost_volume_bwd`,
+`bilinear_warp`, `bilinear_warp_bwd`, `vwarp`; `--ptxas` builds the cost
+volume and the warp with `-Xptxas -v` and prints each library's f32 cost
+volume's and backward kernels' registers and spills. A library is timed with
+what its wrapper launches: the feature warp's backward of an earlier source
+(`--parent`) and the scatter route zero an f32 buffer first and, for bf16,
+round it afterwards. For the feature warp's backward each turn also gives
+the host time a call of that wrapper's work (its allocations, the route
+query where the source has one, the launch; 1000 calls issued back to back).
 """
 
 from __future__ import annotations
@@ -34,7 +40,12 @@ import torch.nn.functional as F
 
 from vstab_torch.kernels import _build
 from vstab_torch.kernels.cost_volume import cost_volume_backward_plain, cost_volume_plain
-from vstab_torch.kernels.warp import bilinear_warp_plain
+from vstab_torch.kernels.warp import (
+    ROUTE_SCATTER,
+    UNBOUNDED,
+    bilinear_warp_backward_plain,
+    bilinear_warp_plain,
+)
 from vstab_torch.kernels.warp1d import vwarp_plain
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
@@ -53,6 +64,15 @@ VARIANTS = {
         f"warp_{tx}x{ty}": ("warp", [("BW_TX = 128", f"BW_TX = {tx}"), ("BW_TY = 2", f"BW_TY = {ty}")])
         for tx, ty in ((256, 1), (64, 4), (128, 1), (64, 2))
     },
+    # The warp backward (wbwd_*): at most 1 or 8 rounds of the block's pixel
+    # groups, registers for 4 or 6 blocks an SM; probes (timed, not checked):
+    # no walk, no dflow, no bits marked.
+    **{f"wbwd_rounds{r}": ("warp", [("BWD_MAX_ROUNDS = 4", f"BWD_MAX_ROUNDS = {r}")]) for r in (1, 8)},
+    **{f"wbwd_{b}_an_sm": ("warp", [("BWD_MIN_BLOCKS_SM = 5", f"BWD_MIN_BLOCKS_SM = {b}")]) for b in (4, 6)},
+    "wbwd_probe_no_walk": ("warp", [("uint32_t rows = qm[ww], bits = 0u;", "uint32_t rows = 0u, bits = 0u;")]),
+    "wbwd_probe_no_dflow": ("warp", [("        if (dflow != nullptr) {\n          const Taps own",
+                                      "        if (false) {\n          const Taps own")]),
+    "wbwd_probe_no_marks": ("warp", [("        atomicOr(qm + row, 1u << col);\n        atomicOr(qm + ww, 1u << row);\n", "")]),
     # floats a thread a chunk, chunks a block: 1 chunk a block is "no loop"
     **{
         f"vwarp_per{per}_chunks{chunks}": (
@@ -67,14 +87,22 @@ CV_TRAIN_SHAPES = ((8, 48, 64, 32), (8, 24, 32, 64), (8, 12, 16, 96), (8, 6, 8, 
 CV_SHAPES = CV_TRAIN_SHAPES + ((8, 48, 80, 96), (8, 192, 320, 32))
 # The backward: the trainer's five levels in f32, then the 720p level in bf16.
 CV_BWD_SHAPES = tuple((s, torch.float32) for s in CV_TRAIN_SHAPES) + (((8, 192, 320, 32), torch.bfloat16),)
+# The feature warp's backward: the trainer's four f32 levels (max_disp 8, both
+# gradients), the 720p level in bf16, then the photometric loss's call (C = 3,
+# UNBOUNDED, the flow's gradient alone).
+WARP_TRAIN_SHAPES = CV_TRAIN_SHAPES[:4]
+WARP_BWD_SHAPES = tuple((s, torch.float32, 8.0, True) for s in WARP_TRAIN_SHAPES) + (
+    ((8, 192, 320, 32), torch.bfloat16, 8.0, True), ((8, 48, 64, 3), torch.float32, float(UNBOUNDED), False))
 # kernel timed -> its source in csrc/
 TIMED = {"cost_volume_f32": "cost_volume", "cost_volume_bwd": "cost_volume", "bilinear_warp": "warp",
-         "vwarp": "warp1d"}
+         "bilinear_warp_bwd": "warp", "vwarp": "warp1d"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _CV_ARGS = [_PTR] * 3 + [_INT] * 6 + [_PTR]
 _CV_BWD_ARGS = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 _WARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 2 + [_PTR]
 _VWARP_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _PTR]
+_WARP_BWD_ARGS = [_PTR] * 5 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 2 + [_PTR]
+_WARP_ROUTE_ARGS = [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 4
 
 
 def _build_all(parent, sources, ptxas):
@@ -100,7 +128,7 @@ def _build_all(parent, sources, ptxas):
         for source, path in paths.items():
             so = os.path.join(OUT, f"{name}-{source}.so")
             include = parent if name == "parent" else _build.CSRC
-            verbose = ["-Xptxas", "-v"] if ptxas and source == "cost_volume" else []
+            verbose = ["-Xptxas", "-v"] if ptxas and source in ("cost_volume", "warp") else []
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *verbose, "-I", include, "-o", so, path]
             procs.append((name, source, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -110,19 +138,20 @@ def _build_all(parent, sources, ptxas):
         if proc.returncode:
             raise RuntimeError(f"{name} ({source}.cu) did not build:\n{log}")
         libs.setdefault(source, {})[name] = ctypes.CDLL(so)
-        if ptxas and source == "cost_volume":
+        if ptxas and source in ("cost_volume", "warp"):
             _print_ptxas(name, log)
     return libs
 
 
-_PTXAS_KERNELS = ("cost_volume_f32_kernel", "cost_volume_bwd_kernel", "cost_volume_bwd_element_kernel")
+_PTXAS_KERNELS = ("cost_volume_f32_kernel", "cost_volume_bwd_kernel", "cost_volume_bwd_element_kernel",
+                  "bilinear_warp_bwd_kernel", "bilinear_warp_bwd_scatter_kernel")
 
 
 def _print_ptxas(name, log):
     """One JSON line per f32 cost-volume kernel and backward kernel in
     ptxas's report: its name, template arguments (the forward: R, TH, NXG,
-    KS, CQ; the backward: R, TH, NXG, NDY after the dtype, or V), registers
-    and spills."""
+    KS, CQ; the cost volume's backward: R, TH, NXG, NDY after the dtype, or
+    V; the warp's backward: none), registers and spills."""
     entry = kernel = None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
@@ -146,16 +175,29 @@ def _print_ptxas(name, log):
             entry = None
 
 
-def _order(libs):
-    middle = [k for k in libs if k not in ("current", "parent")]
+def _order(libs, prefix=""):
+    """Library names in turns: parent, current, the variants named with
+    `prefix`, current, parent."""
+    middle = [k for k in libs if k not in ("current", "parent") and k.startswith(prefix)]
     ends = [k for k in ("parent", "current") if k in libs]
     return ends + middle + ends[::-1]
 
 
+_FNS = {}
+
+
+def _fn(lib, symbol, argtypes):
+    """The library's entry point, its types set once."""
+    key = (lib._name, symbol)
+    if key not in _FNS:
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, _INT
+        _FNS[key] = fn
+    return _FNS[key]
+
+
 def _call(lib, symbol, argtypes, *args):
-    fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = argtypes, _INT
-    err = fn(*args)
+    err = _fn(lib, symbol, argtypes)(*args)
     if err:
         raise RuntimeError(f"{symbol}: CUDA launch failed ({err})")
 
@@ -243,8 +285,72 @@ def _time_cost_volume_bwd(libs, g, stream, time_ms, hbm):
                           "train_levels_sum_ms_by_turn": by_turn}), flush=True)
 
 
+def _time_warp_bwd(libs, g, stream, time_ms, host_us, hbm):
+    """The feature warp's backward at WARP_BWD_SHAPES, flow inside +-max_disp
+    (7.9 pixels; 30 under UNBOUNDED): every library held to
+    `bilinear_warp_backward_plain` within 1e-5 (f32) or 2^-7 (bf16) of each
+    gradient's largest value, then timed in turns with what its wrapper
+    launches, and the host time a call of its wrapper's work; the bound is
+    the function's bytes (g, img and flow read, dimg and dflow written, in
+    their own dtypes) over the card's memory rate."""
+    sums = {}
+    for shape, dtype, max_disp, need_img in WARP_BWD_SHAPES:
+        n, h, w, c = shape
+        amp = 7.9 if max_disp < UNBOUNDED else 30.0
+        img = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        flow = ((torch.rand((n, h, w, 2), generator=g, device="cuda") * 2 - 1) * amp).to(dtype)
+        gout = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        want = bilinear_warp_backward_plain(gout, img, flow)
+        rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+        code = _build.DTYPE_CODES[dtype]
+        ptrs = (gout.data_ptr(), img.data_ptr(), flow.data_ptr())
+        route = _fn(libs["current"], "vstab_bilinear_warp_bwd_route", _WARP_ROUTE_ARGS)(
+            *ptrs, n, h, w, c, max_disp, int(need_img), 1, code, code)
+        times, hosts = [], []
+        for name in _order(libs, "wbwd_"):
+            lib, parent = libs[name], name == "parent"
+
+            def run(lib=lib, parent=parent):
+                """The wrapper's work: the parent's zeroed f32 buffer and bf16
+                cast, else the route's question when dimg is asked for and
+                the buffer only on the scatter route."""
+                dimg = acc = None
+                if need_img:
+                    scatter = parent or _fn(lib, "vstab_bilinear_warp_bwd_route", _WARP_ROUTE_ARGS)(
+                        *ptrs, n, h, w, c, max_disp, 1, 1, code, code) == ROUTE_SCATTER
+                    dimg = acc = torch.zeros(shape, device="cuda") if scatter else torch.empty_like(img)
+                dflow = torch.empty_like(flow)
+                _call(lib, "vstab_bilinear_warp_bwd", _WARP_BWD_ARGS, *ptrs,
+                      None if dimg is None else dimg.data_ptr(), dflow.data_ptr(), n, h, w, c, max_disp,
+                      code, code, stream)
+                if acc is not None and acc.dtype != dtype:
+                    dimg = acc.to(dtype)
+                return dimg, dflow
+
+            for what, a, b in zip(("dimg", "dflow"), run(), want):
+                if a is None or "probe" in name:
+                    continue
+                err = float((a.float() - b.float()).abs().max())
+                tol = rel * float(b.float().abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"{name} bilinear_warp_bwd {shape} {what}: max error {err:.3e} over {tol:.3e}")
+            times.append((name, time_ms(run)))
+            hosts.append((name, host_us(run)))
+        size = img.element_size()
+        moved = (3 if need_img else 2) * img.numel() * size + 2 * flow.numel() * flow.element_size()
+        print(json.dumps({"kernel": "bilinear_warp_bwd", "shape": shape, "dtype": str(dtype).split(".")[1],
+                          "max_disp": max_disp, "need_img": need_img, "route": route,
+                          "bound_ms": moved / hbm * 1e3, "ms": times, "host_us": hosts}), flush=True)
+        if dtype == torch.float32 and shape in WARP_TRAIN_SHAPES and need_img:
+            _sum_by_turn(sums, times)
+        del img, flow, gout, want
+    for name, by_turn in sums.items():
+        print(json.dumps({"kernel": "bilinear_warp_bwd", "library": name,
+                          "train_levels_sum_ms_by_turn": by_turn}), flush=True)
+
+
 def main() -> int:
-    from chip_smoke import _hbm_rate, _time_ms
+    from chip_smoke import _hbm_rate, _host_us, _time_ms
     from vstab_torch.bench import card as _card
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -252,7 +358,7 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(TIMED), default=sorted(TIMED),
                     help="kernels to time (default: all)")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print the f32 cost volume's and the backward's registers and spills")
+                    help="print the f32 cost volume's and the backward kernels' registers and spills")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_variants: torch sees no CUDA device", file=sys.stderr)
@@ -267,6 +373,8 @@ def main() -> int:
         _time_cost_volume(libs["cost_volume"], g, stream, _time_ms, hbm)
     if "cost_volume_bwd" in args.only:
         _time_cost_volume_bwd(libs["cost_volume"], g, stream, _time_ms, hbm)
+    if "bilinear_warp_bwd" in args.only:
+        _time_warp_bwd(libs["warp"], g, stream, _time_ms, _host_us, hbm)
     for shape in WARP_SHAPES if "bilinear_warp" in args.only else ():
         n, h, w, c = shape
         img = torch.randn(shape, generator=g, device="cuda").bfloat16()
@@ -274,7 +382,7 @@ def main() -> int:
         want = bilinear_warp_plain(img, flow.clamp(-8, 8)).float()
         out = torch.empty_like(img)
         times = []
-        for name in _order(libs["warp"]):
+        for name in _order(libs["warp"], "warp_"):
             def run():
                 _call(libs["warp"][name], "vstab_bilinear_warp", _WARP_ARGS, img.data_ptr(),
                       flow.data_ptr(), out.data_ptr(), n, h, w, c, 8.0, 1, 1, stream)

@@ -18,14 +18,25 @@ point from the shape and the addresses.
 
 Gradient: the CUDA path always goes through `BilinearWarpFn` (without a
 graph, as under `no_grad` or `inference_mode`, that is the forward launch and
-nothing else), whose backward is `bilinear_warp_backward`: it launches
-`vstab_bilinear_warp_bwd` of the same source: the image's gradient by f32
-atomic adds into a zeroed f32 buffer (rounded once to the image dtype), the flow's by a shuffle reduction
-over a pixel's channels, zero where the forward clipped the flow. The plain
-version does not clip, so the two gradients differ exactly where
-|flow| > max_disp. `bilinear_warp_backward_plain` writes the unclipped
-gradients out with gathers and an `index_add_`. `UNBOUNDED` is a `max_disp`
-under which the kernel clips nothing: the unclipped warp on the card.
+nothing else), whose backward is `bilinear_warp_backward`: one launch of
+`vstab_bilinear_warp_bwd` of the same source, whose route the source's
+`vstab_bilinear_warp_bwd_route` names from the shape, `max_disp`, the
+gradients asked for and the addresses. The training network's warp (both
+gradients, max_disp 8) takes the gather: a block stages its window's taps,
+each source pixel sums its contributors in increasing output index, so the
+image gradient is written once in the image's dtype and is the same to the
+bit run to run and for an image alone or in a batch; the flow's gradient
+comes from 16-byte vectors and a shuffle reduction in a fixed order, zero
+where the forward clipped the flow. The scatter route, the first version,
+takes the rest: the image's gradient under a larger `max_disp` such as
+`UNBOUNDED`, a channel count off the vector length or an unaligned view,
+with f32 atomics into a buffer this wrapper zeroes and rounds; and the
+flow's gradient alone (the photometric loss), which asks for no image
+gradient and so is a gather with no atomics and no buffer. The plain version does not clip, so the two
+gradients differ exactly where |flow| > max_disp.
+`bilinear_warp_backward_plain` writes the unclipped gradients out with
+gathers and a `scatter_add_`. `UNBOUNDED` is a `max_disp` under which the
+kernel clips nothing: the unclipped warp on the card.
 
 Convention: output[n,y,x] samples input at (x + flow[...,0], y + flow[...,1]);
 out-of-bounds taps clamp to the border.
@@ -34,6 +45,7 @@ out-of-bounds taps clamp to the border.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +55,7 @@ from vstab_torch.kernels._build import (
     DTYPE_CODES,
     CudaKernel,
     check_cuda,
+    library,
     stream_ptr,
 )
 
@@ -59,6 +72,31 @@ KERNEL_BWD = CudaKernel(
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 )
 UNBOUNDED = 1 << 20  # pixels: a max_disp that clips no flow
+# Routes of vstab_bilinear_warp_bwd_route (csrc/warp.cu, BwdRoute)
+ROUTE_NONE, ROUTE_GATHER, ROUTE_SCATTER = range(3)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_fn():
+    fn = library("warp").vstab_bilinear_warp_bwd_route
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_route(
+    g: torch.Tensor, img: torch.Tensor, flow: torch.Tensor, max_disp: float,
+    need: Tuple[bool, bool],
+) -> int:
+    """The route (ROUTE_*) that `vstab_bilinear_warp_bwd` takes for these
+    CUDA tensors: a question to the built library, no launch."""
+    route = _route_fn()(
+        g.data_ptr(), img.data_ptr(), flow.data_ptr(), *img.shape, float(max_disp),
+        int(need[0]), int(need[1]), DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype],
+    )
+    if route < 0:
+        raise TypeError(f"bilinear_warp_backward: no route for {img.dtype} and {flow.dtype}")
+    return route
 
 
 def _grid(n_rows: int, n_cols: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,8 +191,12 @@ def bilinear_warp_backward(
                 f"flow {tuple(flow.shape)} do not belong to one warp"
             )
         n, h, w, c = img.shape
-        # The atomic adds accumulate in f32 whatever the image dtype.
-        dimg = torch.zeros(img.shape, dtype=torch.float32, device=img.device) if need[0] else None
+        dimg = acc = None
+        if need[0]:  # only the scatter route wants a zeroed f32 buffer, rounded once
+            if backward_route(g, img, flow, max_disp, need) == ROUTE_SCATTER:
+                dimg = acc = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+            else:
+                dimg = torch.empty_like(img)
         dflow = torch.empty_like(flow) if need[1] else None
         if img.numel() and (need[0] or need[1]):
             KERNEL_BWD(
@@ -164,7 +206,9 @@ def bilinear_warp_backward(
                 n, h, w, c, float(max_disp), DTYPE_CODES[img.dtype],
                 DTYPE_CODES[flow.dtype], stream_ptr(img),
             )
-        return (None if dimg is None else dimg.to(img.dtype)), dflow
+        if acc is not None and img.dtype != torch.float32:
+            dimg = acc.to(img.dtype)
+        return dimg, dflow
     if img.device.type == "cpu":
         dimg, dflow = bilinear_warp_backward_plain(g, img, flow)
         return (dimg if need[0] else None), (dflow if need[1] else None)
@@ -232,8 +276,12 @@ def warp_validity(shape_hw: Tuple[int, int], flow: torch.Tensor) -> torch.Tensor
 __all__ = [
     "KERNEL",
     "KERNEL_BWD",
+    "ROUTE_GATHER",
+    "ROUTE_NONE",
+    "ROUTE_SCATTER",
     "UNBOUNDED",
     "BilinearWarpFn",
+    "backward_route",
     "bilinear_warp",
     "bilinear_warp_backward",
     "bilinear_warp_backward_plain",
