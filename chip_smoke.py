@@ -5,7 +5,7 @@
 
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
 and the repository's `ckpts/`. It does the following (step 4 runs after
-step 15, once every path has shown its shapes, dtypes and buckets; step 12
+step 19, once every path has shown its shapes, dtypes and buckets; step 12
 after it):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
@@ -107,10 +107,29 @@ after it):
    version, a profiled run. Step 4 holds the kernels at its shapes (8 chunks
    of pairs, one 64-frame render dispatch).
 
-Every path of steps 3, 7 to 10, 15 and 16 is driven with the launch counters
-zeroed just before and read just after, and must have launched all four
-forward kernels; step 13 does the same for the two kernels inside the network
-and their backward kernels.
+17. debug (runs after step 11): `vstab_torch.utils.debug.stabilize_checked`
+   on step 5's small clip (9x64x96, f32 flow) against `stabilize` (99.9% of
+   pixels within 1e-3), all four forward kernels counted; a frame with one
+   NaN pixel must raise with "nan" in the message; then `python -m
+   vstab_torch stabilize --debug` on step 11's 33-frame 720p file (where
+   `cv2` is installed). Step 4 holds the kernels at its shapes.
+18. data-parallel training (after step 15): `make_train_step(...,
+   group=)` through a one-rank group of the port's backend (NCCL for the
+   CUDA tensors) at step 13's size, three supervised steps against three
+   without the group from the same parameters and draws under cuDNN's
+   deterministic algorithms: metrics and parameters equal to the bit, and a
+   step's launches of all six kernels those of a step of step 13; the
+   step's host ms with and without the group, and the time of the
+   all-reduce of a step's gradients (its bytes beside it).
+19. data-parallel eval: `run_sweep(data_parallel=True)` through a one-rank
+   group on step 15's three clips against the serial sweep, both under
+   cuDNN's deterministic algorithms: the same clips, scores within 5e-3,
+   `batch` 1, the same launches; a second call resumes and launches nothing.
+
+Every path of steps 3, 7 to 10, 15 to 17 and 19 is driven with the launch
+counters zeroed just before and read just after, and must have launched all
+four forward kernels; steps 13 and 18 do the same for the two kernels inside
+the network and their backward kernels.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -622,6 +641,37 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
             "launches": launches}
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """A process group of one rank with the port's backend (`BACKEND`: NCCL
+    for CUDA tensors, gloo for CPU ones) over a free local port, destroyed
+    on the way out."""
+    import socket
+
+    import torch.distributed as dist
+    from vstab_torch.dist.init import BACKEND
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, the flag restored after it."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def _median_s(run, iters: int = 3) -> float:
     """Seconds of one run: one warm run, then the median of `iters`."""
     run()
@@ -647,19 +697,12 @@ def sharded_phase(frames_np: np.ndarray, params: dict, card: str) -> dict:
     one profiled run. Returns the two paths for `kernel_phase`: one rank holds
     T_pad frames, so its flow runs T_pad pairs (the last a freeze pair) and
     its render one dispatch of T_pad frames."""
-    import socket
-
-    import torch.distributed as dist
     import vstab_torch
     from vstab_torch.dist import make_mesh, stabilize_sharded
     from vstab_torch.dist.init import BACKEND
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
     paths = {}
-    try:
+    with _one_rank_group():
         mesh = make_mesh()
         nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
         base = vstab_torch.Config()
@@ -703,8 +746,6 @@ def sharded_phase(frames_np: np.ndarray, params: dict, card: str) -> dict:
                 profile(run)
             paths[name] = {"hw": (h, w), "n": t_pad, "renders": {d: 1}, "chunks": _flow_chunks(t_pad),
                            "launches": launches}
-    finally:
-        dist.destroy_process_group()
     return paths
 
 
@@ -1499,13 +1540,9 @@ def train_phase(card: str, tmp: str) -> dict:
         raise AssertionError("the saved checkpoint does not hold the trained parameters")
     loose = float((estimate_flow(trained, batch["im1"], batch["im2"], cfg)
                    - estimate_flow(trained, batch["im1"], batch["im2"], cfg)).abs().max())
-    was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with _deterministic_cudnn():
         a = estimate_flow(trained, batch["im1"], batch["im2"], cfg)
         b = estimate_flow(loaded, batch["im1"], batch["im2"], cfg)
-    finally:
-        torch.backends.cudnn.deterministic = was
     diff = float((a - b).abs().max())
     _say(f"checkpoint round trip: {len(loaded)} tensors equal bit for bit, flow on a fixed batch differs by {diff:g} "
          f"(must be 0; two runs on the same parameters without the deterministic flag: {loose:g})")
@@ -1583,6 +1620,175 @@ def eval_phase(card: str, tmp: str) -> dict:
     return {"hw": (h, w), "n": t, "renders": renders, "chunks": len(recs) * _flow_chunks(t - 1), "launches": launches}
 
 
+def dp_train_phase(card: str) -> dict:
+    """The data-parallel training step (`make_train_step(..., group=)`)
+    through a one-rank group of `BACKEND` (NCCL for the CUDA tensors) over
+    the world, at the train phase's size: the default `FlowConfig` in f32
+    from `init_params(0)`, batch 8 at 192x256. Three supervised steps with
+    the group and three without, from the same parameters and the same
+    draws, under cuDNN's deterministic algorithms: a sum over one rank
+    divided by one is the identity, so the metrics and the parameters after
+    the steps are equal to the bit, and each step launches every kernel as
+    a step of the train phase does. Then the step's host ms with and
+    without the group (10 steps each, in the turns plain, group, group,
+    plain) and the all-reduce of a step's gradients alone (CUDA events,
+    median of 10). Returns the group run's launches."""
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.dist.init import BACKEND
+    from vstab_torch.flow import train as T
+    from vstab_torch.flow.pwcnet import init_params
+    from vstab_torch.kernels import reset_launches
+
+    cfg = FlowConfig(compute_dtype="float32")
+    dev = torch.device("cuda")
+    steps = 3
+    scenes = torch.from_numpy(T.make_scene_pool(64, *_TRAIN_HW, seed=0)).to(dev)
+    init = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+
+    def run(group):
+        """Three steps from `init` on draws from seed 7, every launch
+        counted; (metrics, parameters, launches, step, generator)."""
+        net = T._trainable(init, cfg, dev)
+        step = T.make_train_step(net, T.make_optimizer(net.parameters(), 2e-4), "supervised", group=group)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        reset_launches()
+        metrics = [step(T._sample_batch(gen, scenes, _TRAIN_BATCH, 12.0)) for _ in range(steps)]
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        if launches != want:
+            raise AssertionError(f"dp train ({'group' if group else 'no group'}): launched {launches}, expected {want}")
+        return metrics, T._state(net), launches, step, gen
+
+    def host_ms(step, gen, n=10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(T._sample_batch(gen, scenes, _TRAIN_BATCH, 12.0))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    import torch.distributed as dist
+
+    with _deterministic_cudnn(), _one_rank_group() as world:
+        plain = run(None)
+        dp = run(world)
+        for i, (a, b) in enumerate(zip(dp[0], plain[0])):
+            if set(a) != {"loss", "grad_norm", "epe_finest"} or not all(torch.equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"dp train: step {i}'s metrics differ from the plain step's: {a} {b}")
+        if set(dp[1]) != set(plain[1]) or not all(torch.equal(dp[1][k], plain[1][k]) for k in plain[1]):
+            raise AssertionError("dp train: the parameters after the steps differ from the plain step's")
+        turns = [host_ms(plain[3], plain[4]), host_ms(dp[3], dp[4]), host_ms(dp[3], dp[4]), host_ms(plain[3], plain[4])]
+        numel = sum(v.numel() for v in dp[1].values())
+        buf = torch.randn(numel, device=dev)
+        reduce_ms = _time_ms(lambda: dist.all_reduce(buf, group=world))
+        t0 = time.perf_counter()
+        for _ in range(100):
+            T._check_local_batch(_TRAIN_BATCH, world)
+        check_us = (time.perf_counter() - t0) / 100 * 1e6
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    _say("dp train: " + json.dumps({
+        "ranks": 1, "backend": BACKEND, "nccl": nccl, "steps_compared": steps, "bit_equal": True,
+        "losses": [float(m["loss"]) for m in dp[0]], "grad_norms": [float(m["grad_norm"]) for m in dp[0]],
+        "launches": dp[2], "host_ms_per_step_turns_plain_group_group_plain": turns,
+        "all_reduce_bytes": 4 * numel, "all_reduce_ms": reduce_ms, "size_check_host_us": check_us,
+        "cudnn_deterministic": True, "batch": _TRAIN_BATCH, "hw": list(_TRAIN_HW), "card": card,
+    }))
+    return dp[2]
+
+
+def dp_eval_phase(card: str, tmp: str) -> dict:
+    """`run_sweep(data_parallel=True)` through a one-rank group on the eval
+    phase's three 48x256x320 clips, against the serial sweep of the same
+    clips in the same call, both under cuDNN's deterministic algorithms:
+    the same clips in the same order, scores within 5e-3, `batch` 1, the
+    same launches; a second call resumes and launches nothing. Returns the
+    sweep's launches."""
+    from vstab_torch.eval.deepstab import _load_done, run_sweep
+
+    kw = dict(n_synthetic=3, synth_shape=(48, 256, 320))
+    dp_path, serial_path = os.path.join(tmp, "dp.jsonl"), os.path.join(tmp, "serial.jsonl")
+    with _deterministic_cudnn(), _one_rank_group():
+        recs, launches, dt = _run_counted("dp eval sweep", lambda: run_sweep(None, dp_path, data_parallel=True, **kw))
+        before = _all_launches()
+        again = run_sweep(None, dp_path, data_parallel=True, **kw)
+        if again != recs or _all_launches() != before:
+            raise AssertionError("dp eval sweep: the second call did not resume from the manifest")
+    with _deterministic_cudnn():
+        serial, serial_launches, serial_dt = _run_counted("eval sweep, serial", lambda: run_sweep(None, serial_path, **kw))
+    if [r["clip"] for r in recs] != [r["clip"] for r in serial] or len(_load_done(dp_path)) != len(serial):
+        raise AssertionError(f"dp eval sweep: clips {[r['clip'] for r in recs]}")
+    worst = 0.0
+    for a, b in zip(recs, serial):
+        worst = max(worst, *(abs(a[k] - b[k]) for k in ("stability", "cropping", "distortion")))
+        if a["batch"] != 1 or a["frames"] != b["frames"]:
+            raise AssertionError(f"dp eval sweep: bad record {a}")
+    if worst >= 5e-3 or launches != serial_launches:
+        raise AssertionError(f"dp eval sweep: scores {worst:.3e} apart, launches {launches} against {serial_launches}")
+    _say("dp eval sweep: " + json.dumps({
+        "ranks": 1, "clips": len(recs), "run_s": dt, "serial_run_s": serial_dt, "max_score_diff": worst,
+        "records": recs, "card": card}))
+    return launches
+
+
+def debug_phase(u8: np.ndarray, have_cv2: bool, card: str) -> dict:
+    """`stabilize_checked` on the small clip (9x64x96, f32 flow, the
+    default `Config` otherwise) with every launch counted, against
+    `stabilize` (99.9% of pixels within 1e-3); one NaN pixel must raise;
+    then `python -m vstab_torch stabilize --debug` on the file phase's
+    frames, where OpenCV is installed. Returns the checked run's path for
+    `kernel_phase`."""
+    import vstab_torch
+    from vstab_torch.eval.synthetic import make_shaky_clip
+    from vstab_torch.utils.debug import stabilize_checked
+
+    base = vstab_torch.Config()
+    cfg = dataclasses.replace(base, flow=dataclasses.replace(base.flow, compute_dtype="float32"))
+    frames_np, _ = make_shaky_clip(t=9, h=64, w=96, seed=0)
+    params = vstab_torch.default_params(cfg, ckpt_dir="ckpts")
+    (got, _), launches, dt = _run_counted("debug", lambda: stabilize_checked(frames_np, params, cfg))
+    _close("stabilize_checked vs stabilize (9x64x96, f32)", got, vstab_torch.stabilize(frames_np, params, cfg)[0],
+           tol=1e-3)
+    bad = frames_np.copy()
+    bad[4, 20, 30, 1] = np.nan
+    try:
+        stabilize_checked(bad, params, cfg)
+        raise AssertionError("stabilize_checked took a frame with a NaN pixel")
+    except FloatingPointError as e:
+        if "nan" not in str(e):
+            raise
+        _say(f"debug: one NaN pixel raised: {e}")
+    d = _bucket(torch.from_numpy(frames_np).cuda(), params, cfg)[1]
+    _say("debug: " + json.dumps({"frames": 9, "hw": [64, 96], "run_s": dt, "max_disp": d, "card": card}))
+    if not have_cv2:
+        _say("stabilize --debug, file to file: not run, this machine has no cv2 (OpenCV)")
+    else:
+        from vstab_torch.io.video import probe_video, write_video
+
+        tmp = tempfile.mkdtemp(prefix="vstab_smoke_debug_")
+        try:
+            src, dst = os.path.join(tmp, "in.mp4"), os.path.join(tmp, "out.mp4")
+            write_video(src, u8, fps=30.0)
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "vstab_torch", "stabilize", src, dst, "--debug"],
+                               capture_output=True, text=True, timeout=600,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+            if r.returncode != 0:
+                raise AssertionError(f"stabilize --debug failed ({r.returncode}):\n{r.stderr[-3000:]}")
+            rec = json.loads(r.stdout.strip().splitlines()[-1])
+            n_out = probe_video(dst)[0]
+            _say("stabilize --debug, file to file: " + json.dumps({
+                **rec, "subprocess_s": time.perf_counter() - t0, "output_frames": n_out, "card": card}))
+            if rec["frames"] != u8.shape[0] or n_out != u8.shape[0]:
+                raise AssertionError(f"stabilize --debug: {rec['frames']} / {n_out} frames, wanted {u8.shape[0]}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return {"hw": (64, 96), "dtype": torch.float32, "n": 9, "renders": {d: 1}, "chunks": _flow_chunks(8),
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1625,6 +1831,7 @@ def main() -> int:
     del hd8
     render_memory_probe(card)
     file_phase(u8[:33], have_cv2, card)
+    paths["debug_64x96"] = debug_phase(u8[:33], have_cv2, card)
     del u8
 
     small_clip_check()
@@ -1633,6 +1840,9 @@ def main() -> int:
     try:
         paths["train_192x256"] = train_phase(card, tmp)
         paths["eval_256x320"] = eval_phase(card, tmp)
+        # Held in their phases to the launches of the train and eval phases'
+        # paths, whose shapes they run: no kernel rows of their own.
+        held = {"dp_train_192x256": dp_train_phase(card), "dp_eval_256x320": dp_eval_phase(card, tmp)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1646,7 +1856,9 @@ def main() -> int:
     bwd_rows, _ = backward_kernel_phase(hbm)
     _say(f"backward kernel checks: {time.perf_counter() - t0:.1f} s")
     rows.update(bwd_rows)
-    by_path = {name: {**{k: 0 for k in _all_launches()}, **p["launches"]} for name, p in paths.items()}
+    zeros = {k: 0 for k in _all_launches()}
+    by_path = {name: {**zeros, **p["launches"]} for name, p in paths.items()}
+    by_path.update({name: {**zeros, **launches} for name, launches in held.items()})
 
     meta = {
         "cost_volume": ("vstab_torch/kernels/csrc/cost_volume.cu", "vstab/kernels/cost_volume.py:192"),

@@ -941,5 +941,67 @@ def test_train_entry_points_run_on_the_card(cuda, tmp_path, capsys):
     assert (tmp_path / "full" / "flow_000004.msgpack").exists()
 
 
+# Data parallelism through one NCCL rank: a sum over one rank divided by one
+# is the identity, so under `cudnn.deterministic` the step with the group
+# and the step without it are equal to the bit, after the parameters'
+# broadcast, the size check and the two all-reduces have run.
+def test_dp_train_step_one_nccl_rank_equals_the_plain_step(cuda, deterministic_cudnn):
+    import torch.distributed as dist
+
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.dist.init import BACKEND
+    from vstab_torch.flow import train as T
+    from vstab_torch.flow.pwcnet import init_params
+    from vstab_torch.kernels import KERNELS_BWD
+
+    cfg = FlowConfig(
+        pyramid_channels=(8, 16, 24), estimator_channels=(16, 16), context_dilations=(1, 2, 1),
+        search_radius=2, compute_dtype="float32", output_level=2,
+    )
+    params = init_params(0, cfg, cuda)
+    batch = {k: v.to(cuda) for k, v in T.synthetic_batch(torch.Generator().manual_seed(1), 4, 64, 64, 2.0).items()}
+
+    def run(group):
+        net = T._trainable(params, cfg, cuda)
+        step = T.make_train_step(net, T.make_optimizer(net.parameters(), 3e-4), "supervised", group=group)
+        reset_launches()
+        metrics = [step(batch) for _ in range(3)]
+        launched = [k.launches for k in (*KERNELS.values(), *KERNELS_BWD.values())]
+        return metrics, T._state(net), launched
+
+    plain = run(None)
+    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        dp = run(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(dp[0], plain[0]):
+        assert set(got) == set(want) == {"loss", "grad_norm", "epe_finest"}
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert all(torch.equal(dp[1][k], plain[1][k]) for k in plain[1])
+    assert dp[2] == plain[2] == [3 * 2, 3 * 1, 0, 0, 3 * 2, 3 * 1]
+
+
+# `stabilize_checked` runs the kernels on the card, its checks between them.
+def test_stabilize_checked_on_the_card_equals_stabilize(cuda, deterministic_cudnn):
+    import vstab_torch
+    from vstab_torch.utils.debug import _smooth_and_render_checked, stabilize_checked
+
+    cfg, params, frames = _sharded_case("sparse_ls")
+    frames = frames[:9]
+    reset_launches()
+    got, _ = stabilize_checked(frames, params, cfg)
+    assert all(k.launches > 0 for k in KERNELS.values())
+    assert torch.equal(got, vstab_torch.stabilize(frames, params, cfg)[0])
+    flow = torch.zeros((8, 48, 64, 2), device=cuda)
+    flow[3, 5, 6, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match="1 nan values in the flow"):
+        _smooth_and_render_checked(torch.as_tensor(frames, device=cuda), flow, cfg)
+    frames = frames.copy()
+    frames[4, 7, 9, 1] = float("nan")
+    with pytest.raises(FloatingPointError, match="1 nan values in the input frames"):
+        stabilize_checked(frames, params, cfg)
+
+
 if __name__ == "__main__":
     _sharded_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

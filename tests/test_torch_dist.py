@@ -27,16 +27,13 @@ Tolerances:
 import dataclasses
 import json
 import os
-import socket
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
 import torch
+from torch_ranks import REPO, World
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = os.path.join(REPO, "ckpts")
 WORLDS = (2, 4)
 PIPE_CASES = ("sparse", "affine", "auto")
@@ -212,55 +209,6 @@ def _worker(rank: int, world: int, port: int, outdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-class _World:
-    """The ranks of one world size: started at once, read when first needed."""
-
-    def __init__(self, world, tmp):
-        self.world, self.dir = world, os.path.join(tmp, f"w{world}")
-        os.makedirs(self.dir)
-        env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               "OMP_NUM_THREADS": "1"}
-        port = str(_free_port())
-        self.procs = [
-            subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), port, self.dir],
-                             env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)
-        ]
-        self._ranks = None
-
-    def ranks(self):
-        """[(arrays, info)] by rank; fails with the ranks' output if one failed."""
-        if self._ranks is None:
-            deadline = time.monotonic() + _WORKER_TIMEOUT_S
-            logs = []
-            try:
-                for p in self.procs:
-                    logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-            finally:
-                for p in self.procs:
-                    p.kill()
-            if any(p.returncode for p in self.procs):
-                self._ranks = "\n".join(f"--- rank {r} (rc {p.returncode})\n{log[-3000:]}"
-                                        for r, (p, log) in enumerate(zip(self.procs, logs)))
-            else:
-                self._ranks = []
-                for r in range(self.world):
-                    with open(os.path.join(self.dir, f"rank{r}.json")) as f:
-                        self._ranks.append((dict(np.load(os.path.join(self.dir, f"rank{r}.npz"))), json.load(f)))
-        if isinstance(self._ranks, str):
-            pytest.fail(f"the {self.world} ranks failed:\n{self._ranks}")
-        return self._ranks
-
-    def cat(self, key):
-        return np.concatenate([a[key] for a, _ in self.ranks()], axis=0)
-
-
 def _jax_mesh(n):
     import jax
     from jax.sharding import Mesh
@@ -295,7 +243,7 @@ def env(tmp_path_factory):
     jparams = init_params(jax.random.PRNGKey(0), _cfg(jcfg).flow)
     tiny = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     np.savez(os.path.join(tmp, "params.npz"), **{f"p/{k}": v.numpy() for k, v in tiny.items()})
-    worlds = {w: _World(w, tmp) for w in WORLDS}
+    worlds = {w: World(__file__, w, tmp, _WORKER_TIMEOUT_S) for w in WORLDS}
 
     ref = {"schur": {}, "pipe_jax": {}, "pipe_port": {}}
     for t, m, bl in SCHUR_SHAPES:

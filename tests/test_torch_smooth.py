@@ -18,11 +18,12 @@ import torch
 
 from vstab.core.config import SmoothConfig as SmoothRef
 from vstab.smooth import sparse_ls as ref
+from vstab.smooth.banded import banded_matvec as matvec_ref
 from vstab.smooth.banded import banded_solve_scan as banded_ref
 from vstab.smooth.schur import schur_solve as schur_ref
 from vstab_torch.core.config import SmoothConfig
 from vstab_torch.smooth import sparse_ls as port
-from vstab_torch.smooth.banded import banded_solve_scan
+from vstab_torch.smooth.banded import banded_matvec, banded_solve_scan
 from vstab_torch.smooth.schur import schur_solve
 
 torch.set_num_threads(1)
@@ -113,6 +114,40 @@ def test_banded_solve_matches_reference():
     want = banded_ref(*(jnp.asarray(x) for x in (d0, d1, d2, b)))
     got = banded_solve_scan(*(_t(x) for x in (d0, d1, d2, b)))
     _no_worse(got.numpy(), want, _solve64(d0, d1, d2, b), atol=5e-3)
+
+
+def _spd_penta(t, m, seed):
+    """Random SPD pentadiagonal bands [T, M], [T-1, M], [T-2, M]: the
+    diagonal dominates each row's off-diagonal entries by 4."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.normal(size=(t - 1, m)).astype(np.float32)
+    d2 = rng.normal(size=(t - 2, m)).astype(np.float32)
+    a1, a2 = np.abs(d1), np.abs(d2)
+    d0 = np.full((t, m), 4.0, np.float32)
+    d0[1:] += a1
+    d0[:-1] += a1
+    d0[2:] += a2
+    d0[:-2] += a2
+    return d0, d1, d2
+
+
+@pytest.mark.parametrize("t", [3, 5, 64])
+def test_banded_matvec_matches_reference(t):
+    """y = A x against the JAX function, within 1e-6 of the largest |y|."""
+    d0, d1, d2 = _spd_penta(t, 7, t)
+    x = np.random.default_rng(100 + t).normal(size=(t, 7)).astype(np.float32)
+    want = np.asarray(matvec_ref(*(jnp.asarray(a) for a in (d0, d1, d2, x))))
+    got = banded_matvec(*(_t(a) for a in (d0, d1, d2, x))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("t", [3, 5, 64])
+def test_banded_solve_inverts_banded_matvec(t):
+    """The solve of A x gives x back on a diagonally dominant SPD band."""
+    d0, d1, d2 = (_t(a) for a in _spd_penta(t, 7, t))
+    x = _t(np.random.default_rng(200 + t).normal(size=(t, 7)).astype(np.float32))
+    back = banded_solve_scan(d0, d1, d2, banded_matvec(d0, d1, d2, x))
+    np.testing.assert_allclose(back.numpy(), x.numpy(), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("t,block_len", [(100, 32), (96, 16)])

@@ -1,6 +1,6 @@
 """Command-line interface of the port, the counterpart of `vstab/cli.py`.
 
-  python -m vstab_torch stabilize in.mp4 out.mp4 [--config cfg.json] [--crop auto]
+  python -m vstab_torch stabilize in.mp4 out.mp4 [--config cfg.json] [--crop auto] [--debug]
   python -m vstab_torch eval [--dataset DIR] [--results results.jsonl] [--n-synthetic 8]
   python -m vstab_torch bench [--frames 48 --height 720 --width 1280]
 
@@ -80,7 +80,12 @@ def cmd_stabilize(args) -> int:
     frames, fps = read_video(args.input, max_frames=args.max_frames)
     log.info("read %s: %s frames %sx%s @ %.1f fps", args.input, *frames.shape[:3], fps)
     t0 = time.perf_counter()
-    out, _ = stabilize(frames, params, cfg, device=dev)
+    if args.debug:
+        from vstab_torch.utils.debug import stabilize_checked
+
+        out, _ = stabilize_checked(frames, params, cfg, device=dev)
+    else:
+        out, _ = stabilize(frames, params, cfg, device=dev)
     out = out.cpu().numpy()  # waits for the device
     wall = time.perf_counter() - t0
     log.info("stabilized %d frames in %.2fs (%.1f frames/s)",
@@ -133,6 +138,9 @@ def main(argv=None) -> int:
                     help="torch device; 'cpu' runs the kernels' plain versions")
     sp.add_argument("--max-frames", type=int, default=None)
     sp.add_argument("--ckpt-dir", default="ckpts")
+    sp.add_argument("--debug", action="store_true",
+                    help="check every stage of the whole-clip path: fail loudly on "
+                    "nan/inf or a render displacement beyond its bucket")
     sp.add_argument("--blocked", action="store_true",
                     help="force temporal-block streaming execution")
     sp.add_argument("--block-len", type=int, default=None,
@@ -162,8 +170,9 @@ def main(argv=None) -> int:
     )
     ep.add_argument("--max-frames", type=int, default=None)
     ep.add_argument("--data-parallel", action="store_true",
-                    help="batch same-shape clips through stabilize_batch, one "
-                    "device's worth (one clip) at a time; nothing is sharded")
+                    help="spread same-shape clips over the ranks of the process "
+                    "group when one is up, a clip a rank; on one process, one "
+                    "clip at a time through stabilize_batch")
     ep.add_argument("--save-videos", default=None)
     ep.set_defaults(fn=cmd_eval)
 

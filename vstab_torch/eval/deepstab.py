@@ -10,10 +10,13 @@
   a file written by either harness resumes under the other;
 - aggregates a report table.
 
-`run_sweep(..., data_parallel=True)` groups same-shape clips and hands each
-group to `stabilize_batch` with the JAX harness's per-clip accounting. It runs
-on the one device it is given: the group size is the number of devices named
-(one), and nothing is sharded over several cards.
+`run_sweep(..., data_parallel=True)` is the clip-level data-parallel sweep
+(`_run_dp_batches`). With a process group up, every rank calls it with the
+same arguments: rank 0 reads the manifest and tells the others what is done,
+same-shape clips go in groups of as many clips as there are ranks, rank r
+stabilizes clip r of a group on its own device, and the records gather on
+rank 0, which alone appends them to the manifest. With no process group it
+runs one clip at a time on the one device.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 VIDEO_EXTS = (".avi", ".mp4", ".mov", ".mkv", ".m4v")
 
@@ -160,14 +164,21 @@ def run_sweep(
     """Per-clip metric sweep with incremental JSONL resume: clips already in
     `results_path` are skipped, and each finished clip is appended at once, so
     a killed sweep resumes at clip granularity. Runs on CUDA unless `device`
-    says otherwise."""
+    says otherwise. `data_parallel=True` spreads the clips over the ranks of
+    the process group when one is up (`_run_dp_batches`); every rank then
+    calls this with the same arguments and gets the same records back."""
     from vstab_torch.core.config import Config
     from vstab_torch.pipeline import default_params, resolve_device
 
     dev = resolve_device(device)
     cfg = cfg if cfg is not None else Config()
     params = params if params is not None else default_params(cfg, device=dev)
-    done = _load_done(results_path)
+    group = dist.group.WORLD if data_parallel and dist.is_initialized() else None
+    done = _load_done(results_path) if group is None or dist.get_rank(group) == 0 else None
+    if group is not None:  # rank 0's reading of the manifest, on every rank
+        box = [done]
+        dist.broadcast_object_list(box, src=0, group=group)
+        done = box[0]
     results = list(done.values())
 
     clips = list(_iter_clips(data_dir, n_synthetic, max_frames, synth_shape))
@@ -175,7 +186,7 @@ def run_sweep(
 
     os.makedirs(os.path.dirname(results_path) or ".", exist_ok=True)
     if data_parallel and todo:
-        results.extend(_run_batches(todo, params, cfg, results_path, save_videos_dir, [dev]))
+        results.extend(_run_dp_batches(todo, params, cfg, results_path, save_videos_dir, dev, group))
         return results
 
     for name, frames, fps in todo:
@@ -187,43 +198,59 @@ def run_sweep(
     return results
 
 
-def _run_batches(
-    todo, params, cfg, results_path: str, save_videos_dir: Optional[str], devices: Sequence
+def _run_dp_batches(
+    todo, params, cfg, results_path: str, save_videos_dir: Optional[str], device, group=None
 ) -> List[dict]:
-    """Clip-level batching: group same-shape clips, stack `len(devices)` of
-    them to [B,T,H,W,3] and run `stabilize_batch` (one render bucket for the
-    batch, picked on the host, so strong-shake clips render as in the serial
-    sweep). Everything runs on `devices[0]`: with one device a batch is one
-    clip, and nothing is sharded."""
+    """Clip-level data parallelism: same-shape clips in groups of k, the
+    size of `group` (1 with no group). Rank r stabilizes clip r of a group
+    through `stabilize_batch` on its own device (one render bucket, picked
+    on the host, so strong-shake clips render as in the serial sweep) and
+    scores it; the group's records gather on every rank, and rank 0 appends
+    them to the manifest in clip order before the next group starts, so a
+    killed sweep resumes at clip granularity. In a ragged tail group a rank
+    without a clip waits for the others: the reference pads its sharded
+    batch with copies of the last clip and drops them, but a rank here is a
+    process of its own and has nothing to pad. Each record carries the
+    group's size (`batch`), the slowest rank's wall time (`batch_wall_s`)
+    and the clip's share of it (`wall_s`, `fps`). Returns the records on
+    every rank."""
     from vstab_torch.eval.metrics import evaluate_videos
     from vstab_torch.pipeline import stabilize_batch
 
-    n_dev = max(1, len(devices))
+    k, rank = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
     by_shape: Dict[tuple, list] = {}
     for item in todo:
         by_shape.setdefault(item[1].shape, []).append(item)
 
     results = []
     for items in by_shape.values():
-        for i in range(0, len(items), n_dev):
-            group = items[i : i + n_dev]
-            b = len(group)
-            batch = np.stack([f for _, f, _ in group])
-            t0 = time.perf_counter()
-            out = stabilize_batch(batch, params, cfg, device=devices[0]).cpu().numpy()
-            wall = time.perf_counter() - t0
-            for (name, frames, fps), o in zip(group, out):
-                rec = {"clip": name, **evaluate_videos(frames, o)}
+        for i in range(0, len(items), k):
+            group_items = items[i : i + k]
+            mine = None
+            if rank < len(group_items):
+                name, frames, fps = group_items[rank]
+                t0 = time.perf_counter()
+                out = stabilize_batch(frames[None], params, cfg, device=device)[0].cpu().numpy()
+                wall = time.perf_counter() - t0
+                mine = ({"clip": name, **evaluate_videos(frames, out)}, wall)
+                _save_video(save_videos_dir, name, out, fps)
+            gathered = [mine]
+            if group is not None:
+                gathered = [None] * k
+                dist.all_gather_object(gathered, mine, group=group)
+            b = len(group_items)
+            wall = max(w for _, w in gathered[:b])
+            for (_, frames, _), (rec, _) in zip(group_items, gathered):
                 # Amortized per-clip accounting, so that batched and serial
-                # tables compare: the clip's share of the batch's wall time
-                # is wall / b; the raw batch time is kept under batch_wall_s.
+                # tables compare: the clip's share of the group's wall time
+                # is wall / b; the slowest rank's time is kept as batch_wall_s.
                 rec["frames"] = int(frames.shape[0])
                 rec["batch"] = b
                 rec["fps"] = round(frames.shape[0] / (wall / b), 3)
                 rec["wall_s"] = round(wall / b, 3)
                 rec["batch_wall_s"] = round(wall, 3)
-                _append_record(results_path, rec)
-                _save_video(save_videos_dir, name, o, fps)
+                if rank == 0:
+                    _append_record(results_path, rec)
                 results.append(rec)
     return results
 

@@ -16,6 +16,14 @@ versions. The optimizer is optax's `clip_by_global_norm` then `adamw` in
 torch: `ClippedAdamW`. Training computes in f32 with TF32 off unless the
 config asks for bf16.
 
+Data parallelism: the reference shards the batch's leading axis over its
+mesh and lets XLA sum the gradients. Here one process drives one device and
+holds its own rows of the global batch; `make_train_step(..., group=g)`
+broadcasts the parameters from the group's first rank once, and after every
+backward pass averages the gradients and the metrics over the group's ranks
+(one collective each, on one flat buffer), so that every rank clips on the
+global norm and takes the same optimizer step.
+
 Random numbers: a `torch.Generator` cannot reproduce `jax.random`'s streams,
 so every batch maker is split in two: `_draw_*` takes the generator and
 returns the named draws, and `_*_from_draws` does everything else
@@ -34,6 +42,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vstab_torch.core.config import FlowConfig
@@ -234,23 +243,73 @@ def make_loss(net: PWCNet, mode: str = "supervised") -> Callable[[Batch], Tuple[
     return loss_fn
 
 
+def _views(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The consecutive pieces of `flat`, shaped as the tensors of `like`."""
+    return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+def _check_local_batch(n: int, group) -> None:
+    """Raises ValueError on every rank of `group` unless all of them hold
+    `n` rows. One collective on a CPU tensor (gloo, beside NCCL in the
+    port's backend), so the host does not wait for the device."""
+    sizes = torch.tensor([n, -n], dtype=torch.int64)
+    dist.all_reduce(sizes, op=dist.ReduceOp.MAX, group=group)
+    hi, lo = int(sizes[0]), -int(sizes[1])
+    if hi != lo:
+        raise ValueError(
+            f"the ranks' local batches differ ({lo} to {hi} rows): the global batch must split evenly"
+        )
+
+
 def make_train_step(
-    net: PWCNet, optimizer: ClippedAdamW, mode: str = "supervised", scheduler=None
+    net: PWCNet, optimizer: ClippedAdamW, mode: str = "supervised", scheduler=None, group=None,
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns step(batch) -> metrics, which updates `net`'s parameters in
     place (and steps `scheduler`, if given, once after the optimizer).
     metrics: 'loss', 'grad_norm' (before clipping) and the loss's own
-    entries, tensors on the device (nothing is read back)."""
+    entries, tensors on the device (nothing is read back).
+
+    With a process `group` the step is data-parallel over its ranks: each
+    rank passes its own rows of the global batch (rank r of k the rows
+    [r*N/k, (r+1)*N/k)), and the step raises ValueError on every rank if
+    the local batches differ in size. `net`'s parameters are broadcast from
+    the group's first rank here, once. After the backward pass the gradients
+    are summed over the group in one flat buffer (in the order of
+    `net.parameters()`; a missing gradient is summed as zeros and stays
+    missing) and divided by the group's size, then copied back; the loss
+    and its entries are averaged the same way, so the metrics are the
+    global batch's and `grad_norm` is equal on every rank."""
     loss_fn = make_loss(net, mode)
+    params = list(net.parameters())
+    size = 1
+    if group is not None:
+        size = dist.get_world_size(group)
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in params])
+            dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+            torch._foreach_copy_(params, _views(flat, params))
+
+    @torch.no_grad()
+    def mean_over_group(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)  # gloo has no AVG
+        return _views(flat.div_(size), tensors)
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        if group is not None:
+            _check_local_batch(next(iter(batch.values())).shape[0], group)
         optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(batch)
         loss.backward()
+        metrics = {"loss": loss.detach(), **aux}
+        if group is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            torch._foreach_copy_(grads, mean_over_group(grads))
+            metrics = dict(zip(metrics, mean_over_group(list(metrics.values()))))
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return {"loss": loss.detach(), "grad_norm": optimizer.grad_norm, **aux}
+        return {"loss": metrics.pop("loss"), "grad_norm": optimizer.grad_norm, **metrics}
 
     return train_step
 

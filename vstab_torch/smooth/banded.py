@@ -15,6 +15,16 @@ from __future__ import annotations
 import torch
 
 
+def banded_matvec(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for symmetric pentadiagonal A; all [T(-k), M]."""
+    y = d0 * x
+    y[1:] += d1 * x[:-1]
+    y[:-1] += d1 * x[1:]
+    y[2:] += d2 * x[:-2]
+    y[:-2] += d2 * x[2:]
+    return y
+
+
 def banded_solve_scan(
     d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -60,4 +70,4 @@ def banded_solve_scan(
     return torch.stack(xs, dim=0)
 
 
-__all__ = ["banded_solve_scan"]
+__all__ = ["banded_matvec", "banded_solve_scan"]
