@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
-and the repository's `ckpts/`. It does the following (step 4 runs after
-step 19, once every path has shown its shapes, dtypes and buckets; step 12
-after it):
+and the repository's `ckpts/`. It does the following (steps 20 and 21 run
+after step 10; step 4 after step 19, once every path has shown its shapes,
+dtypes and buckets; steps 22 and 12 after it):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
    CUDA versions; exits non-zero when torch sees no CUDA device;
@@ -60,8 +60,9 @@ after it):
    of the frames (8x192x256x3, displacements to +-30) and the photometric
    loss's (8x48x64x3); the sweep's bf16 levels at 256x320 and its 48-frame
    render dispatches at each clip's bucket, with 5 and 4 launches a chunk of
-   pairs and the render warps' launches a dispatch. Then the peak device
-   memory of one 64-frame 1080p uint8 render dispatch;
+   pairs and the render warps' launches a dispatch. Then (after step 21)
+   the peak device memory of one 64-frame 1080p uint8 render dispatch at
+   d = 127 and of one 16-frame 4K dispatch at d = 255;
 11. file to file, where the machine has OpenCV (`cv2`; read once at the start
    and printed): writes a short 720p file and runs `python -m vstab_torch
    stabilize ... --blocked --block-len 16` as a subprocess, then checks its
@@ -126,10 +127,30 @@ after it):
    cuDNN's deterministic algorithms: the same clips, scores within 5e-3,
    `batch` 1, the same launches; a second call resumes and launches nothing.
 
-Every path of steps 3, 7 to 10, 15 to 17 and 19 is driven with the launch
-counters zeroed just before and read just after, and must have launched all
-four forward kernels; steps 13 and 18 do the same for the two kernels inside
-the network and their backward kernels.
+20. long clip (BASELINE config 3), where `cv2` is installed: step 10's clip
+   played forward and back into a file of 1024 frames, written a block at a
+   time, through `stabilize_video_blocked` under the `blocked_1080p` preset
+   (64-frame blocks): 1024 frames of 1920x1080 decoded back from the output,
+   the stats, the device peak within 10% of the same call's with
+   `max_frames=320`, and the host RSS of the per-block log lines no more
+   than 1 GB above the fifth motion block's at any later block (it falls
+   where a sweep's decode prefetch drains).
+21. 4K (BASELINE config 5's resolution on one card):
+   `make_shaky_clip(t=16, h=2160, w=3840, seed=9, shake_px=10.0)` at uint8
+   levels; `stabilize` on its float32 frames (frames/s, stage times, bucket,
+   peak memory; flow in chunks of 2 pairs at this size), then step 9's
+   blocked checks with `block_len=8` (no fetch A/B). Step 4 checks the render
+   warps of the whole clip at the bucket 255 beside its own (16x2160x4352,
+   1 and 3 channels, both modes) and the reference's contract cases of the
+   1-D warps, (d, W) in (127, 1920), (255, 1920), (255, 3840) on 96 rows.
+22. route: a CUDA-graph capture of `hwarp` at 16x2160x4352x3 holds one kernel
+   node, `hwarp_row_kernel`'s (its launch geometry, and its name where
+   libcuda gives it).
+
+Every path of steps 3, 7 to 10, 15 to 17, 19, 20 and 21 is driven with the
+launch counters zeroed just before and read just after, and must have
+launched all four forward kernels; steps 13 and 18 do the same for the two
+kernels inside the network and their backward kernels.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -180,6 +201,9 @@ def _level_shapes(h: int, w: int, pairs: int = 8):
     return tuple((pairs, hp >> l, wp >> l, c) for l, c in zip(range(2, 7), _LEVEL_CHANNELS))
 
 
+# (d, width) of the reference's contract cases of the 1-D warps at the wide
+# buckets (tests/kernels/test_wide.py): 1080p and 4K rows
+_CONTRACT_CASES = ((127, 1920), (255, 1920), (255, 3840))
 # compute_dtype="float32" on the whole clip: the middle level and the finest
 _CV_F32_SHAPES = ((8, 48, 80, 96), (8, 192, 320, 32))
 # Substring of each kernel's device functions in the profiler's names.
@@ -261,21 +285,25 @@ def kernel_phase(hbm: float, paths: dict):
     """Checks and times every forward kernel at the shapes and dtypes of
     every path in `paths`: name -> {"hw" of the frames, "chunks" of frame
     pairs the flow network ran on, "launches" of one run; where they are not
-    the serving paths' 8 and bf16, "pairs" a chunk and the "dtype" of the
-    network's features; for a path that renders, "n" frames a dispatch and
-    "renders", {bucket: dispatches}; for the trainer, "image_warps", {shape:
-    launches} of the 3-channel unclipped f32 warps outside the network, and
-    "also_check", shapes of that warp which another run of the path gives it}.
-    Holds each path's launch counts to these. Returns (rows, per_shape,
-    floor_ms): the one row per kernel of the `{"kernels": ...}` line, timed at
-    the kernel's largest shape on the whole-clip path, every (kernel, shape,
-    path) row with its launches a run, and the time this timing gives a
-    near-empty launch."""
+    the serving paths' (`default_pair_chunk` pairs, bf16), "pairs" a chunk
+    and the "dtype" of the network's features; for a path that renders, "n"
+    frames a dispatch, "renders", {bucket: dispatches}, and "extra_buckets"
+    to check beside its own in both modes at 1 and 3 channels and to time
+    with 0 launches; for the trainer, "image_warps", {shape: launches} of the
+    3-channel unclipped f32 warps outside the network, and "also_check",
+    shapes of that warp which another run of the path gives it}. Holds each
+    path's launch counts to these;
+    then times the reference's contract cases of the 1-D warps
+    (`_CONTRACT_CASES`). Returns (rows, per_shape, floor_ms): the one row per
+    kernel of the `{"kernels": ...}` line, timed at the kernel's largest
+    shape on the whole-clip path, every (kernel, shape, path) row with its
+    launches a run, and the time this timing gives a near-empty launch."""
     from vstab_torch.kernels import (
         bilinear_warp, bilinear_warp_plain, cost_volume, cost_volume_plain,
         hwarp, hwarp_plain, vwarp, vwarp_plain,
     )
     from vstab_torch.kernels.warp import UNBOUNDED
+    from vstab_torch.pipeline import default_pair_chunk
 
     g = torch.Generator(device="cuda").manual_seed(0)
     per_shape, rows = [], {}
@@ -303,7 +331,8 @@ def kernel_phase(hbm: float, paths: dict):
     # shown: its launches belong to its shapes.
     def cv_rows(path, f32_too):
         path_dtype = paths[path].get("dtype", torch.bfloat16)
-        shapes = _level_shapes(*paths[path]["hw"], pairs=paths[path].get("pairs", 8))
+        hw = paths[path]["hw"]
+        shapes = _level_shapes(*hw, pairs=paths[path].get("pairs", default_pair_chunk(*hw)))
         count = per_level(path, "cost_volume", len(shapes))
         cases = [(s, path_dtype, count) for s in shapes] + [(s, torch.float32, 0) for s in _CV_F32_SHAPES if f32_too]
         for shape, dtype, launches in cases:
@@ -331,7 +360,8 @@ def kernel_phase(hbm: float, paths: dict):
     # four go to the vector kernel.
     def warp_rows(path):
         dtype = paths[path].get("dtype", torch.bfloat16)
-        shapes = _level_shapes(*paths[path]["hw"], pairs=paths[path].get("pairs", 8))[:4]
+        hw = paths[path]["hw"]
+        shapes = _level_shapes(*hw, pairs=paths[path].get("pairs", default_pair_chunk(*hw)))[:4]
         count = per_level(path, "bilinear_warp", len(shapes))
         for shape in shapes:
             warp_row(path, shape, dtype, 12.0, 8, count)
@@ -413,12 +443,14 @@ def kernel_phase(hbm: float, paths: dict):
     def render_rows_at(path, d, dispatches, on_field):
         n, (h, w) = paths[path]["n"], paths[path]["hw"]
         errs = {"vwarp": [], "hwarp": []}
-        if path == _MAIN:
-            # The buckets 16, 63 and 127 and the path's own, with 3 channels
-            # (the frame) and 1 (the fields that hwarp resamples). At d=16 the
-            # rows of 1314 floats do not start 16-byte aligned, so hwarp's
-            # 4-byte head and tail copies run.
-            for dd, c in sorted({(dd, c) for dd in (16, 63, 127, d) for c in (1, 3)}):
+        extra = paths[path].get("extra_buckets", ())
+        if extra:
+            # The path's extra buckets and its own, with 3 channels (the
+            # frame) and 1 (the fields that hwarp resamples). On the whole
+            # 720p clip 16, 63 and 127: at d=16 the rows of 1314 floats do not
+            # start 16-byte aligned, so hwarp's 4-byte head and tail copies
+            # run; on the whole 4K clip 255, at 3840 + 2 * 256 = 4352 columns.
+            for dd, c in sorted({(dd, c) for dd in (*extra, d) for c in (1, 3)}):
                 shape = (n, h, w + 2 * (dd + 1), c)
                 x = torch.rand(shape, generator=g, device="cuda")
                 f = field(shape[:3], dd)
@@ -426,44 +458,77 @@ def kernel_phase(hbm: float, paths: dict):
                     errs["vwarp"].append(_check(f"vwarp {shape} d={dd} {mode}", vwarp(x, f, dd, mode), vwarp_plain(x, f, dd, mode)))
                     errs["hwarp"].append(_check(f"hwarp {shape} d={dd} {mode}", hwarp(x, f, dd, mode), hwarp_plain(x, f, dd, mode)))
                 del x, f
-        cases = [
-            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", dispatches),
-            ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
-            ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", dispatches),
-            ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", on_field),
-        ]
-        for name, kern, plain, mode, c, kind, count in cases:
-            if kind == "random" and name == "vwarp" and path != _MAIN:
-                continue
-            shape = (n, h, w + 2 * (d + 1), c)
-            x = torch.rand(shape, generator=g, device="cuda")
-            f = field(shape[:3], d, kind)
-            if kind == "smooth" or path != _MAIN:
-                for m in ("edge", "wrap"):
-                    errs[name].append(_check(f"{name} {shape} d={d} {m} {kind} field", kern(x, f, d, m), plain(x, f, d, m)))
-            fc = f.clamp(-d, d)
-            zero = torch.zeros_like(fc)
-            u, v = (zero, fc) if name == "vwarp" else (fc, zero)
-            x_nchw = x.permute(0, 3, 1, 2)
-            grid = _grid(*shape[1:3], u, v, torch.float32)
-            row = dict(
-                kernel=name, path=path, shape=list(shape) + [f"d={d} {mode}"], field=kind, launches=count,
-                max_abs_err=max(errs[name]),
-                ms=_time_ms(lambda: kern(x, f, d, mode)),
-                plain_ms=_time_ms(lambda: plain(x, f, d, mode), iters=5),
-                bytes=4 * (2 * x.numel() + f.numel()), flops=None,
-                # border padding: grid_sample has no wrap mode
-                library_ms=_time_ms(lambda: F.grid_sample(
-                    x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-            )
-            per_shape.append(row)
-            if path == _MAIN and name == "hwarp" and c == 3:
-                fs = field(shape[:3], d, "smooth")
-                errs[name].append(_check(f"hwarp {shape} d={d} {mode} smooth field", hwarp(x, fs, d, mode), hwarp_plain(x, fs, d, mode)))
-                _say(f"  hwarp {shape} on the smooth field: {_time_ms(lambda: hwarp(x, fs, d, mode)):.4f} ms "
-                     f"(random field: {row['ms']:.4f} ms)")
-                del fs
-            del x, f, fc, zero, u, v, grid
+
+        def timed(d, dispatches, on_field):
+            cases = [
+                ("vwarp", vwarp, vwarp_plain, "wrap", 3, "smooth", dispatches),
+                ("vwarp", vwarp, vwarp_plain, "wrap", 3, "random", 0),
+                ("hwarp", hwarp, hwarp_plain, "edge", 3, "random", dispatches),
+                ("hwarp", hwarp, hwarp_plain, "edge", 1, "random", on_field),
+            ]
+            for name, kern, plain, mode, c, kind, count in cases:
+                if kind == "random" and name == "vwarp" and path != _MAIN:
+                    continue
+                shape = (n, h, w + 2 * (d + 1), c)
+                x = torch.rand(shape, generator=g, device="cuda")
+                f = field(shape[:3], d, kind)
+                if kind == "smooth" or path != _MAIN:
+                    for m in ("edge", "wrap"):
+                        errs[name].append(_check(f"{name} {shape} d={d} {m} {kind} field", kern(x, f, d, m), plain(x, f, d, m)))
+                fc = f.clamp(-d, d)
+                zero = torch.zeros_like(fc)
+                u, v = (zero, fc) if name == "vwarp" else (fc, zero)
+                x_nchw = x.permute(0, 3, 1, 2)
+                grid = _grid(*shape[1:3], u, v, torch.float32)
+                row = dict(
+                    kernel=name, path=path, shape=list(shape) + [f"d={d} {mode}"], field=kind, launches=count,
+                    max_abs_err=max(errs[name]),
+                    ms=_time_ms(lambda: kern(x, f, d, mode)),
+                    plain_ms=_time_ms(lambda: plain(x, f, d, mode), iters=5),
+                    bytes=4 * (2 * x.numel() + f.numel()), flops=None,
+                    # border padding: grid_sample has no wrap mode
+                    library_ms=_time_ms(lambda: F.grid_sample(
+                        x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+                )
+                per_shape.append(row)
+                if path == _MAIN and name == "hwarp" and c == 3 and dispatches:
+                    fs = field(shape[:3], d, "smooth")
+                    errs[name].append(_check(f"hwarp {shape} d={d} {mode} smooth field", hwarp(x, fs, d, mode), hwarp_plain(x, fs, d, mode)))
+                    _say(f"  hwarp {shape} on the smooth field: {_time_ms(lambda: hwarp(x, fs, d, mode)):.4f} ms "
+                         f"(random field: {row['ms']:.4f} ms)")
+                    del fs
+                del x, f, fc, zero, u, v, grid
+
+        # The path's own bucket with its launches, then each extra bucket,
+        # timed the same way with 0 launches.
+        timed(d, dispatches, on_field)
+        for dd in sorted(set(extra) - {d}):
+            timed(dd, 0, 0)
+
+    # The reference's cases of the 1-D warps at the wide buckets
+    # (tests/kernels/test_wide.py): one 96-row frame of 3 channels, a field
+    # like a rotation and zoom over most of [-d, d], both modes checked;
+    # timed in each kernel's mode on the render path. On no path: 0 launches.
+    def contract_rows():
+        for d, w in _CONTRACT_CASES:
+            x = torch.rand((1, 96, w, 3), generator=g, device="cuda")
+            yy = torch.arange(96, device="cuda", dtype=torch.float32).view(96, 1)
+            xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, w)
+            f = (0.9 * d * (2.0 * xx / w - 1.0) + 0.05 * d * torch.sin(yy / 17.0))[None].contiguous()
+            for name, kern, plain, mode in (("vwarp", vwarp, vwarp_plain, "wrap"), ("hwarp", hwarp, hwarp_plain, "edge")):
+                err = max(_check(f"{name} {tuple(x.shape)} d={d} {m} contract field", kern(x, f, d, m), plain(x, f, d, m))
+                          for m in ("edge", "wrap"))
+                zero = torch.zeros_like(f)
+                u, v = (zero, f.clamp(-d, d)) if name == "vwarp" else (f.clamp(-d, d), zero)
+                x_nchw, grid = x.permute(0, 3, 1, 2), _grid(96, w, u, v, torch.float32)
+                per_shape.append(dict(
+                    kernel=name, path="contract cases", shape=[1, 96, w, 3, f"d={d} {mode}"], field="contract",
+                    launches=0, max_abs_err=err,
+                    ms=_time_ms(lambda: kern(x, f, d, mode)), plain_ms=_time_ms(lambda: plain(x, f, d, mode), iters=5),
+                    bytes=4 * (2 * x.numel() + f.numel()), flops=None,
+                    library_ms=_time_ms(lambda: F.grid_sample(
+                        x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+                ))
 
     # The whole-clip path first (a kernel's first row is its row of the
     # `kernels` line), then every other path at its own shapes: its pyramid
@@ -476,6 +541,7 @@ def kernel_phase(hbm: float, paths: dict):
             extra_warp_checks()
         image_warp_rows(path)
         render_rows(path)
+    contract_rows()
     for row in per_shape:
         _bound(row, hbm)
         _say(f"  kernel {json.dumps(row)}")
@@ -538,9 +604,11 @@ def _check_frames(name: str, out, shape) -> None:
         raise AssertionError(f"{name}: bad output: shape {tuple(out.shape)}, finite {finite}")
 
 
-def _flow_chunks(pairs: int) -> int:
-    """Chunks of 8 frame pairs that `clip_flow` runs for `pairs` pairs (up to 2.2 megapixels)."""
-    return -(-pairs // 8)
+def _flow_chunks(pairs: int, hw) -> int:
+    """Chunks that `clip_flow` runs for `pairs` pairs of frames of hw."""
+    from vstab_torch.pipeline import default_pair_chunk
+
+    return -(-pairs // default_pair_chunk(*hw))
 
 
 def _bucket(frames: torch.Tensor, params: dict, cfg) -> tuple:
@@ -589,8 +657,8 @@ def main_path(card: str):
     res = bench.measure(frames, params, cfg, iters=3, stages=True)
     _say("main path: " + json.dumps({**res, "card": card}))
     device_ms = profile(lambda: vstab_torch.stabilize(frames, params, cfg))
-    path = {"hw": (720, 1280), "n": 48, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(47),
-            "launches": launches}
+    path = {"hw": (720, 1280), "n": 48, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(47, (720, 1280)),
+            "launches": launches, "extra_buckets": (16, 63, 127)}
     return path, device_ms, frames_np, frames, params
 
 
@@ -609,7 +677,7 @@ def affine_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
     _say("affine: " + json.dumps({
         **res, "non_border_pixels": float((out != 0).any(dim=-1).float().mean()), "card": card}))
     small_clip_check("affine")
-    return {"hw": (h, w), "n": t, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(t - 1),
+    return {"hw": (h, w), "n": t, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(t - 1, (h, w)),
             "launches": launches}
 
 
@@ -637,7 +705,7 @@ def batch_phase(frames: torch.Tensor, params: dict, card: str) -> dict:
         "clips": 2, "frames_per_s": 2 * t / dt, "run_s": dt, "residual_bounds_px": bounds,
         "max_disp": d, "peak_mem_gb": peak, "card": card,
     }))
-    return {"hw": (h, w), "n": t, "renders": {d: 2}, "chunks": 2 * _flow_chunks(t - 1),
+    return {"hw": (h, w), "n": t, "renders": {d: 2}, "chunks": 2 * _flow_chunks(t - 1, (h, w)),
             "launches": launches}
 
 
@@ -744,47 +812,71 @@ def sharded_phase(frames_np: np.ndarray, params: dict, card: str) -> dict:
             if method == "sparse_ls":
                 _say(f"{name}: profile of one more run ({card})")
                 profile(run)
-            paths[name] = {"hw": (h, w), "n": t_pad, "renders": {d: 1}, "chunks": _flow_chunks(t_pad),
+            paths[name] = {"hw": (h, w), "n": t_pad, "renders": {d: 1}, "chunks": _flow_chunks(t_pad, (h, w)),
                            "launches": launches}
     return paths
 
 
-class _StatsCatcher(logging.Handler):
-    """Keeps the stats dict that the blocked pipeline logs at the end of a run."""
+class _BlockedLog(logging.Handler):
+    """Keeps what the blocked pipeline logs in a run: the stats dict at the
+    end, and the host RSS (GB) of each per-block line by sweep."""
 
     def __init__(self):
         super().__init__(level=logging.INFO)
         self.stats = None
+        self.rss = {"motion": [], "render": []}
 
     def emit(self, record):
-        if str(record.msg).startswith("blocked stabilize:"):
+        msg = str(record.msg)
+        if msg.startswith("blocked stabilize:"):
             self.stats = record.args if isinstance(record.args, dict) else record.args[0]
+        elif msg.startswith(("motion block", "render block")):
+            self.rss[msg.split()[0]].append(float(record.args[-1]))
 
 
-def _blocked_run(frames, params, cfg, block_len):
-    import vstab_torch
-
-    catcher = _StatsCatcher()
+@contextlib.contextmanager
+def _blocked_log():
+    catcher = _BlockedLog()
     log = logging.getLogger("vstab_torch.blocked")
     level = log.level
     log.addHandler(catcher)
     log.setLevel(logging.INFO)
     try:
-        out = vstab_torch.stabilize_blocked(frames, params, cfg, block_len=block_len)
+        yield catcher
     finally:
         log.removeHandler(catcher)
         log.setLevel(level)
+
+
+def _blocked_run(frames, params, cfg, block_len):
+    import vstab_torch
+
+    with _blocked_log() as catcher:
+        out = vstab_torch.stabilize_blocked(frames, params, cfg, block_len=block_len)
     if catcher.stats is None:
         raise AssertionError("the blocked run logged no stats")
     return out, catcher.stats
 
 
-def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card: str) -> dict:
+def _render_dispatches(t: int, block_len: int, hw) -> tuple:
+    """(frames a dispatch, dispatches) of the blocked pipeline's render sweep:
+    each block of `block_len` frames re-chunked to what
+    `_RENDER_PX_FRAMES_BUDGET` lets through at this frame size."""
+    from vstab_torch.pipeline_blocked import _RENDER_PX_FRAMES_BUDGET
+
+    rb = min(block_len, max(1, _RENDER_PX_FRAMES_BUDGET // (hw[0] * hw[1])))
+    return min(rb, t), sum(-(-min(block_len, t - i) // rb) for i in range(0, t, block_len))
+
+
+def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card: str,
+                  with_fetch_ab: bool = True) -> dict:
     """`stabilize_blocked` on host frames [T,H,W,3] uint8, once as float32
     (u8 / 255) and once as uint8, against `stabilize` on the float32 clip on
     the card: the same `max_disp`, 99.9% of the values within 2e-3. bf16 flow
-    and cuDNN's choice of algorithm are the same in both (chunks of 8 pairs at
-    one frame size); what differs is the grouping of pairs into chunks."""
+    and cuDNN's choice of algorithm are the same in both (chunks of
+    `default_pair_chunk` pairs at one frame size); what differs is the
+    grouping of pairs into chunks. Then a profiled run and, `with_fetch_ab`,
+    the fetch A/B."""
     import vstab_torch
 
     cfg = vstab_torch.Config()
@@ -830,10 +922,151 @@ def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card:
     }))
     _say(f"{name}: profile of one more blocked float32 run ({card})")
     profile(lambda: vstab_torch.stabilize_blocked(f32, params, cfg, block_len=block_len))
-    fetch_ab(name, {"float32": f32, "uint8": u8}, params, cfg, block_len, card)
-    blocks = -(-t // block_len)  # each padded to block_len pairs for the flow, one render dispatch
-    return {"hw": (h, w), "n": min(block_len, t), "renders": {d: blocks}, "chunks": blocks * _flow_chunks(block_len),
+    if with_fetch_ab:
+        fetch_ab(name, {"float32": f32, "uint8": u8}, params, cfg, block_len, card)
+    blocks = -(-t // block_len)  # each padded to block_len pairs for the flow
+    n, dispatches = _render_dispatches(t, block_len, (h, w))
+    return {"hw": (h, w), "n": n, "renders": {d: dispatches}, "chunks": blocks * _flow_chunks(block_len, (h, w)),
             "launches": launches}
+
+
+def whole_4k_phase(u8: np.ndarray, params: dict, card: str) -> dict:
+    """`stabilize` on the 4K clip (BASELINE config 5's resolution, one card)
+    as float32 frames (u8 / 255) on the card, every launch counted: finite,
+    of the right shape; then frames/s, the stage times, the bound, the bucket
+    and the peak device memory (`bench.measure`). Returns its path for
+    `kernel_phase`, with the bucket 255 to check beside its own."""
+    import vstab_torch
+    from vstab_torch import bench
+    from vstab_torch.pipeline import default_pair_chunk
+
+    cfg = vstab_torch.Config()
+    t, h, w, _ = u8.shape
+    frames = torch.from_numpy(u8).cuda().float() * (1.0 / 255.0)
+    (out, _), launches, first_s = _run_counted("whole 4K", lambda: vstab_torch.stabilize(frames, params, cfg))
+    _check_frames("whole 4K", out, (t, h, w, 3))
+    del out
+    res = bench.measure(frames, params, cfg, iters=3, stages=True)
+    _say("whole 4K: " + json.dumps({
+        **res, "frames": t, "hw": [h, w], "pairs_a_chunk": default_pair_chunk(h, w), "first_run_s": first_s,
+        "card": card}))
+    del frames
+    torch.cuda.empty_cache()
+    return {"hw": (h, w), "n": t, "renders": {res["max_disp"]: 1}, "chunks": _flow_chunks(t - 1, (h, w)),
+            "launches": launches, "extra_buckets": (255,)}
+
+
+def long_clip_phase(hd8: np.ndarray, params: dict, have_cv2: bool, card: str):
+    """BASELINE config 3: a 1080p clip of 1024 frames from a file through
+    `stabilize_video_blocked` under the `blocked_1080p` preset (64-frame
+    blocks), what the command line runs past its auto-switch. The input is
+    `hd8` played forward and back (a period of 2 (T - 1) frames), written a
+    block at a time: the host never holds the clip. Checks 1024 frames of
+    the input's size decoded back from the output; that the device peak is
+    within 10% of the same call's with `max_frames=320`; that the host RSS
+    of the per-block log lines rises no more than 1 GB from the fifth motion
+    block to the last render block, nor at any block between. Needs OpenCV;
+    returns the path for `kernel_phase`, or None without `cv2`."""
+    if not have_cv2:
+        _say("long clip: not run, this machine has no cv2 (OpenCV)")
+        return None
+    from vstab_torch.core.config import preset
+    from vstab_torch.io.video import probe_video, read_video_chunks, write_video_frames
+    from vstab_torch.pipeline_blocked import stabilize_video_blocked
+
+    cfg = preset("blocked_1080p")
+    b = cfg.dist.time_block_len
+    t, short = 1024, hd8.shape[0]
+    h, w = hd8.shape[1:3]
+    order = np.concatenate([np.arange(short), np.arange(short - 2, 0, -1)])
+    tmp = tempfile.mkdtemp(prefix="vstab_smoke_long_")
+    try:
+        src = os.path.join(tmp, "long.mp4")
+        t0 = time.perf_counter()
+        with write_video_frames(src, fps=30.0) as wr:
+            for i in range(0, t, b):
+                wr.write(hd8[order[np.arange(i, min(i + b, t)) % len(order)]])
+        write_s = time.perf_counter() - t0
+        if probe_video(src)[0] != t:
+            raise AssertionError(f"long clip: the input file holds {probe_video(src)[0]} frames, not {t}")
+        runs = {}
+        for frames in (t, 320):
+            dst = os.path.join(tmp, f"out_{frames}.mp4")
+            run = lambda: stabilize_video_blocked(src, dst, params, cfg, max_frames=None if frames == t else frames)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _blocked_log() as catcher:
+                if frames == t:
+                    stats, launches, _ = _run_counted("long clip 1080p", run)
+                else:
+                    stats = run()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            decoded = 0
+            for blk, _ in read_video_chunks(dst, chunk_frames=b, dtype="uint8"):
+                if blk.shape[1:] != (h, w, 3):
+                    raise AssertionError(f"long clip: output frames of {blk.shape[1:]}")
+                decoded += blk.shape[0]
+            runs[frames] = {"stats": stats, "peak_mem_gb": peak, "rss_gb": catcher.rss}
+            if decoded != frames or stats["frames"] != frames:
+                raise AssertionError(f"long clip: {decoded} frames decoded from the output, {stats['frames']} "
+                                     f"stabilized, not {frames}")
+            os.remove(dst)
+        long = runs[t]
+        rss = long["rss_gb"]
+        # From the fifth motion block on, RSS must not grow with the clip.
+        # It falls over each sweep's last blocks, where the decode prefetch
+        # (up to three decoded 64-frame blocks, 1.2 GB at 1080p) drains:
+        # that is memory given back, so the last render block may read
+        # lower than the fifth motion block, never more than 1 GB higher,
+        # and no block between them may either.
+        rss_step = rss["render"][-1] - rss["motion"][4]
+        rss_rise = max(rss["motion"][4:] + rss["render"]) - rss["motion"][4]
+        peak_ratio = long["peak_mem_gb"] / runs[320]["peak_mem_gb"]
+        _say("long clip 1080p: " + json.dumps({
+            "frames": t, "hw": [h, w], "block_len": b, "write_input_s": write_s,
+            "stats": long["stats"], "peak_mem_gb": long["peak_mem_gb"],
+            "peak_mem_gb_320_frames": runs[320]["peak_mem_gb"], "peak_ratio": peak_ratio,
+            "stats_320_frames": runs[320]["stats"],
+            "rss_gb_motion_blocks": rss["motion"], "rss_gb_render_blocks": rss["render"],
+            "rss_last_render_less_fifth_motion_gb": rss_step,
+            "rss_largest_from_fifth_motion_block_less_fifth_gb": rss_rise, "card": card}))
+        if abs(peak_ratio - 1.0) > 0.1:
+            raise AssertionError(f"long clip: device peak {long['peak_mem_gb']:.2f} GB against "
+                                 f"{runs[320]['peak_mem_gb']:.2f} GB for 320 frames")
+        if rss_rise > 1.0:
+            raise AssertionError(f"long clip: host RSS rose {rss_rise:+.2f} GB after the fifth motion block "
+                                 f"({rss_step:+.2f} GB at the last render block)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n, dispatches = _render_dispatches(t, b, (h, w))
+    return {"hw": (h, w), "n": n, "renders": {long["stats"]["max_disp"]: dispatches},
+            "chunks": -(-t // b) * _flow_chunks(b, (h, w)), "launches": launches}
+
+
+def hwarp_route_check(card: str) -> None:
+    """`hwarp` at 16x2160x4352x3, the whole 4K clip's frame at the bucket 255
+    (a staged row 2 x 13,060 floats, 104,480 B): one kernel node in a
+    CUDA-graph capture of a call, and that node is `hwarp_row_kernel`: a
+    block of 256 threads a row, with shared memory for the input and the
+    output row (the per-element kernel takes none, and a block for every
+    256 elements). The name is checked too where libcuda gives it."""
+    from vstab_torch.kernels import hwarp
+    from vstab_torch.kernels._build import graph_nodes
+
+    n, h, w, c = 16, 2160, 3840 + 2 * 256, 3
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand((n, h, w, c), generator=g, device="cuda")
+    f = (torch.rand((n, h, w), generator=g, device="cuda") * 2 - 1) * 255.0
+    nodes = graph_nodes(lambda: hwarp(x, f, 255, "edge"))
+    pitch = (w * c + 3) // 4 * 4 + 4
+    want = {"type": 0, "grid": (n * h, 1, 1), "block": (256, 1, 1), "shared_bytes": 2 * pitch * 4}
+    _say(f"hwarp route at {(n, h, w, c)}: graph nodes {json.dumps(nodes)} (want one {json.dumps(want)}, "
+         f"named hwarp_row_kernel) ({card})")
+    name = nodes[0].get("name") if len(nodes) == 1 else None
+    if len(nodes) != 1 or any(nodes[0].get(k) != v for k, v in want.items()) or (
+            name is not None and "hwarp_row_kernel" not in name):
+        raise AssertionError(f"hwarp at {(n, h, w, c)} does not launch hwarp_row_kernel alone")
+    del x, f
 
 
 class _PlainFetch:
@@ -867,26 +1100,31 @@ def fetch_ab(name: str, inputs: dict, params: dict, cfg, block_len: int, card: s
     _say(f"{name} fetch A/B: " + json.dumps({"fps_processed": res, "card": card}))
 
 
-def render_memory_probe(card: str) -> None:
-    """Peak device memory of one 64-frame 1080p uint8 render dispatch of the
-    blocked pipeline at the bucket 127: what `_RENDER_PX_FRAMES_BUDGET` lets
-    through at 1080p."""
+def render_memory_probe(card: str, hw, d: int) -> None:
+    """Peak device memory of one uint8 render dispatch of the blocked
+    pipeline of frames of hw at the bucket d, as many frames as
+    `_RENDER_PX_FRAMES_BUDGET` lets through at that size from a 64-frame
+    block (64 at 1080p, 16 at 4K), vertex paths drawn in +-(60/127) d: finite
+    and of the right shape."""
     import vstab_torch
     from vstab_torch.pipeline_blocked import _block_render
 
     cfg = vstab_torch.Config()
+    (h, w), (n, _) = hw, _render_dispatches(cfg.dist.time_block_len, cfg.dist.time_block_len, hw)
     g = torch.Generator(device="cuda").manual_seed(1)
-    frames = torch.randint(0, 256, (64, 1080, 1920, 3), generator=g, device="cuda", dtype=torch.uint8)
-    path = (torch.rand((64, 12, 16, 2), generator=g, device="cuda") * 2 - 1) * 60.0
+    frames = torch.randint(0, 256, (n, h, w, 3), generator=g, device="cuda", dtype=torch.uint8)
+    path = (torch.rand((n, 12, 16, 2), generator=g, device="cuda") * 2 - 1) * (60.0 * d / 127)
     scale = torch.tensor(cfg.render.fixed_crop_ratio, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    out = _block_render(frames, path, scale, cfg, max_disp=127, to_uint8=True)
+    out = _block_render(frames, path, scale, cfg, max_disp=d, to_uint8=True)
     torch.cuda.synchronize()
-    _check_frames("render probe", out.float(), (64, 1080, 1920, 3))
-    _say("render dispatch 64x1080x1920 uint8, d=127: " + json.dumps({
+    _check_frames("render probe", out.float(), (n, h, w, 3))
+    _say(f"render dispatch {n}x{h}x{w} uint8, d={d}: " + json.dumps({
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "inputs_gb": base / 1e9, "card": card}))
+    del frames, out
+    torch.cuda.empty_cache()
 
 
 def file_phase(u8: np.ndarray, have_cv2: bool, card: str) -> None:
@@ -1032,37 +1270,6 @@ def _dt(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def _graph_nodes(run) -> list:
-    """The device work of one call of `run`, exactly: a CUDA-graph capture of
-    the call, with nothing run, and the type of each node the graph holds
-    (CUDA's CUgraphNodeType: 0 a kernel, 1 a copy, 2 a memset, ...). A
-    call runs once first, so that what it sets up once stays out."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(err):
-        if err:
-            raise RuntimeError(f"CUDA driver call failed ({err})")
-
-    run()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        run()
-    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)))
-    nodes = (ctypes.c_void_p * count.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)))
-    types = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
-        types.append(kind.value)
-    del graph
-    return types
-
-
 def _host_us(run, calls: int = 1000) -> float:
     """Host time a call: the wall time of `calls` calls issued back to back,
     read before the device is waited for, over `calls` (microseconds)."""
@@ -1084,6 +1291,7 @@ def backward_kernel_phase(hbm: float):
         KERNELS_BWD, bilinear_warp, bilinear_warp_backward, bilinear_warp_backward_plain, bilinear_warp_plain,
         cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain,
     )
+    from vstab_torch.kernels._build import graph_nodes
     from vstab_torch.kernels.warp import ROUTE_GATHER, ROUTE_SCATTER, UNBOUNDED, backward_route
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1208,7 +1416,7 @@ def backward_kernel_phase(hbm: float):
             if not all(torch.equal(a, b[lo:hi]) for a, b in zip(part, whole)):
                 raise AssertionError(f"{name}: images {lo}..{hi - 1} alone differ from the batch")
         call = lambda: bilinear_warp_backward(g, img, flow, 8)
-        nodes = _graph_nodes(call)
+        nodes = [node["type"] for node in graph_nodes(call)]
         host = _host_us(call)
         _say(f"  {name}: dimg, dflow equal to the bit in two calls and for images 0, 3..4, 7 alone "
              f"and in the batch; the device nodes of one call (0 = kernel): {nodes}; "
@@ -1617,7 +1825,7 @@ def eval_phase(card: str, tmp: str) -> dict:
     for a, b in zip(recs, from_cli):
         if any(abs(a[k] - b[k]) > 0.02 for k in ("stability", "cropping", "distortion")):
             raise AssertionError(f"eval subcommand: scores of {a['clip']} differ from the library call's")
-    return {"hw": (h, w), "n": t, "renders": renders, "chunks": len(recs) * _flow_chunks(t - 1), "launches": launches}
+    return {"hw": (h, w), "n": t, "renders": renders, "chunks": len(recs) * _flow_chunks(t - 1, (h, w)), "launches": launches}
 
 
 def dp_train_phase(card: str) -> dict:
@@ -1785,7 +1993,7 @@ def debug_phase(u8: np.ndarray, have_cv2: bool, card: str) -> dict:
                 raise AssertionError(f"stabilize --debug: {rec['frames']} / {n_out} frames, wanted {u8.shape[0]}")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-    return {"hw": (64, 96), "dtype": torch.float32, "n": 9, "renders": {d: 1}, "chunks": _flow_chunks(8),
+    return {"hw": (64, 96), "dtype": torch.float32, "n": 9, "renders": {d: 1}, "chunks": _flow_chunks(8, (64, 96)),
             "launches": launches}
 
 
@@ -1828,8 +2036,22 @@ def main() -> int:
     del hd
     _say(f"clip: {hd8.shape} (17 frames forward, then backward) synthesized in {time.perf_counter() - t0:.1f} s")
     paths["blocked_1080p"] = blocked_phase("blocked 1080p", hd8, params, 16, card)
+    long_path = long_clip_phase(hd8, params, have_cv2, card)
+    if long_path is not None:
+        paths["long_1080p"] = long_path
     del hd8
-    render_memory_probe(card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    uhd, _ = make_shaky_clip(t=16, h=2160, w=3840, seed=9, shake_px=10.0)
+    uhd8 = np.clip(uhd * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    del uhd
+    _say(f"clip: {uhd8.shape} synthesized in {time.perf_counter() - t0:.1f} s")
+    paths["whole_4k"] = whole_4k_phase(uhd8, params, card)
+    paths["blocked_4k"] = blocked_phase("blocked 4K", uhd8, params, 8, card, with_fetch_ab=False)
+    del uhd8
+    torch.cuda.empty_cache()
+    render_memory_probe(card, (1080, 1920), 127)
+    render_memory_probe(card, (2160, 3840), 255)
     file_phase(u8[:33], have_cv2, card)
     paths["debug_64x96"] = debug_phase(u8[:33], have_cv2, card)
     del u8
@@ -1851,6 +2073,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows, per_shape, floor_ms = kernel_phase(hbm, paths)
     _say(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    hwarp_route_check(card)
     device_time_line(per_shape, device_ms, floor_ms)
     t0 = time.perf_counter()
     bwd_rows, _ = backward_kernel_phase(hbm)

@@ -327,6 +327,71 @@ def test_hwarp_rows_too_long_for_shared_memory(cuda):
         )
 
 
+# The long-clip and 4K sizes. The reference's contract cases of the 1-D
+# warps at the wide buckets (tests/kernels/test_wide.py): one 96-row frame,
+# a rotation-and-zoom-like field over most of [-d, d].
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+@pytest.mark.parametrize("d,w", [(127, 1920), (255, 1920), (255, 3840)])
+def test_1d_warps_match_plain_at_the_contract_widths(cuda, d, w, mode):
+    g = torch.Generator().manual_seed(30)
+    img = torch.rand((1, 96, w, 3), generator=g).to(cuda)
+    yy, xx = torch.arange(96.0).view(96, 1), torch.arange(float(w)).view(1, w)
+    field = (0.9 * d * (2.0 * xx / w - 1.0) + 0.05 * d * torch.sin(yy / 17.0))[None].contiguous().to(cuda)
+    for kern, plain in ((vwarp, vwarp_plain), (hwarp, hwarp_plain)):
+        torch.testing.assert_close(kern(img, field, d, mode), plain(img, field, d, mode), rtol=0, atol=1e-5)
+
+
+# The 4K render's frame at the bucket 255: 3840 + 2 * 256 = 4352 columns, a
+# staged row of 3 channels 104,480 B of shared memory (hwarp's row kernel).
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+@pytest.mark.parametrize("mode", ["edge", "wrap"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_1d_warps_match_plain_at_the_4k_render_width(cuda, c, mode, kind):
+    g = torch.Generator().manual_seed(c)
+    img = torch.rand((2, 8, 4352, c), generator=g).to(cuda)
+    field = _field(g, kind, 2, 8, 4352, 255).to(cuda)
+    for kern, plain in ((vwarp, vwarp_plain), (hwarp, hwarp_plain)):
+        torch.testing.assert_close(kern(img, field, 255, mode), plain(img, field, 255, mode), rtol=0, atol=1e-5)
+
+
+def test_hwarp_takes_the_row_kernel_at_the_4k_render_width(cuda):
+    """One kernel node in a CUDA-graph capture of a call at 4352x3: one
+    block of 256 threads a row, with the input and output rows' shared
+    memory; `hwarp_row_kernel` by name where libcuda gives names."""
+    from vstab_torch.kernels._build import graph_nodes
+
+    g = torch.Generator().manual_seed(9)
+    img = torch.rand((2, 8, 4352, 3), generator=g).to(cuda)
+    field = (torch.rand((2, 8, 4352), generator=g) * 510 - 255).to(cuda)
+    nodes = graph_nodes(lambda: hwarp(img, field, 255))
+    pitch = (4352 * 3 + 3) // 4 * 4 + 4
+    assert len(nodes) == 1
+    assert {k: nodes[0][k] for k in ("type", "grid", "block", "shared_bytes")} == {
+        "type": 0, "grid": (16, 1, 1), "block": (256, 1, 1), "shared_bytes": 2 * pitch * 4}
+    assert nodes[0]["name"] is None or "hwarp_row_kernel" in nodes[0]["name"]
+
+
+def test_cost_volume_at_the_4k_finest_level_matches_plain(cuda):
+    """8 pairs at the finest level of a 4K frame (2160 rows padded to 2176):
+    8x544x960x32 bf16, an output of 338 million values."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    f1 = torch.randn((8, 544, 960, 32), generator=g, device=cuda).bfloat16()
+    f2 = torch.randn((8, 544, 960, 32), generator=g, device=cuda).bfloat16()
+    torch.testing.assert_close(
+        cost_volume(f1, f2, 4).float(), cost_volume_plain(f1, f2, 4).float(), **_tol(torch.bfloat16)
+    )
+
+
+def test_bilinear_warp_at_the_4k_finest_level_matches_plain(cuda):
+    g = torch.Generator(device="cuda").manual_seed(14)
+    img = torch.randn((8, 544, 960, 32), generator=g, device=cuda).bfloat16()
+    flow = (torch.rand((8, 544, 960, 2), generator=g, device=cuda) * 24 - 12).bfloat16()
+    torch.testing.assert_close(
+        bilinear_warp(img, flow, 8).float(),
+        bilinear_warp_plain(img, flow.clamp(-8, 8)).float(), **_tol(torch.bfloat16),
+    )
+
+
 def test_warp_twopass_on_card_matches_cpu(cuda):
     g = torch.Generator().manual_seed(3)
     frames = torch.rand((3, 40, 56, 3), generator=g)

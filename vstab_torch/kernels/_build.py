@@ -165,12 +165,67 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor], dtypes) -> None:
             raise ValueError(f"{name}: inputs lie on {dev} and {t.device}")
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda's graph API."""
+
+    _fields_ = [
+        ("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+        ("shared_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p),
+        ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p),
+    ]
+
+
+def graph_nodes(run) -> list:
+    """The device work of one call of `run`, exactly: a CUDA-graph capture of
+    the call, with nothing run, and one dict a node of the graph: "type"
+    (CUgraphNodeType: 0 a kernel, 1 a copy, 2 a memset, ...);
+    for a kernel also "grid", "block", "shared_bytes" and "name", the
+    kernel's (mangled) name where libcuda gives it (CUDA 12.3 and later),
+    else None. `run` is called once first, so that what it sets up once
+    stays out. Needs a CUDA device; the port itself never calls it."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"libcuda call failed ({err})")
+
+    def name_of(p):
+        name = ctypes.c_char_p()
+        for handle, getter in ((p.func, "cuFuncGetName"), (p.kern, "cuKernelGetName")):
+            if handle and hasattr(cu, getter) and getattr(cu, getter)(ctypes.byref(name), ctypes.c_void_p(handle)) == 0:
+                return name.value.decode()
+        return None
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        run()
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)))
+    handles = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, handles, ctypes.byref(count)))
+    nodes = []
+    for handle in handles:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(handle), ctypes.byref(kind)))
+        node = {"type": kind.value}
+        if kind.value == 0:
+            p = _KernelNodeParams()
+            check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(handle), ctypes.byref(p)))
+            node.update(grid=tuple(p.grid), block=tuple(p.block), shared_bytes=p.shared_bytes, name=name_of(p))
+        nodes.append(node)
+    del graph
+    return nodes
+
+
 __all__ = [
     "BUILD_DIR",
     "SOURCES",
     "CudaKernel",
     "build_all",
     "check_cuda",
+    "graph_nodes",
     "library",
     "stream_ptr",
 ]

@@ -58,17 +58,23 @@ def _on(params: Params, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: v.to(dev) for k, v in params.items()}
 
 
+def default_pair_chunk(h: int, w: int) -> int:
+    """Frame pairs in one chunk of `clip_flow` for frames of h x w: 8, halved
+    per doubling of the frame area above 2.2 megapixels (floor 1), as in the
+    reference (2 at 2160x3840)."""
+    mp = h * w / 1e6
+    return 8 if mp <= 2.2 else max(1, int(8 * 2.1 / mp))
+
+
 @torch.inference_mode()
 def clip_flow(
     params: Params, frames: torch.Tensor, cfg: Config, pair_chunk: Optional[int] = None
 ) -> torch.Tensor:
     """Consecutive-pair flow over a clip in chunks of `pair_chunk` pairs:
-    [T,H,W,3] -> [T-1,H,W,2]. pair_chunk defaults to 8, halved per doubling
-    of the frame area above 2.2 megapixels (floor 1), as in the reference."""
+    [T,H,W,3] -> [T-1,H,W,2]. pair_chunk defaults to `default_pair_chunk`."""
     t, h, w, _ = frames.shape
     if pair_chunk is None:
-        mp = h * w / 1e6
-        pair_chunk = 8 if mp <= 2.2 else max(1, int(8 * 2.1 / mp))
+        pair_chunk = default_pair_chunk(h, w)
     n_pairs = t - 1
     n_chunks = -(-n_pairs // pair_chunk)
     pad = n_chunks * pair_chunk + 1 - t
@@ -220,6 +226,7 @@ def default_params(
 
 __all__ = [
     "clip_flow",
+    "default_pair_chunk",
     "default_params",
     "path_to_flow",
     "render_bucket",
