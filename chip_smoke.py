@@ -146,8 +146,20 @@ dtypes and buckets; steps 22 and 12 after it):
 22. route: a CUDA-graph capture of `hwarp` at 16x2160x4352x3 holds one kernel
    node, `hwarp_row_kernel`'s (its launch geometry, and its name where
    libcuda gives it).
+23. quality (after step 15): the port held to the JAX package's own quality
+   readings, `tests/torch_quality_reference.json` (written by the JAX package
+   on the CPU; this script only reads it): the N clips of the eval set
+   (`synthetic_clip_set(N)` at 48x256x320) through `stabilize` in the
+   default Config (bf16 flow) and with f32 flow, each precision's mean of
+   each score within its tolerance for n = N of the JAX package's f32 mean;
+   the three 48x720x1280 clips of the file in f32 (n = 3); every gate of the
+   JAX package's integration tests (test_synthetic, test_trained,
+   test_dynamic) on the mean over the file's K input-noise draws, in both
+   precisions; the three EPE gates in both. One table a precision with the
+   card's name and power limit; the phase's time. Step 4 holds the kernels
+   at the eval set's shapes in both precisions and its launch counts.
 
-Every path of steps 3, 7 to 10, 15 to 17, 19, 20 and 21 is driven with the
+Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
 launched all four forward kernels; steps 13 and 18 do the same for the two
 kernels inside the network and their backward kernels.
@@ -1828,6 +1840,129 @@ def eval_phase(card: str, tmp: str) -> dict:
     return {"hw": (h, w), "n": t, "renders": renders, "chunks": len(recs) * _flow_chunks(t - 1, (h, w)), "launches": launches}
 
 
+def _rows_table(rows) -> str:
+    """A markdown table of rows of equal keys, floats to 4 places."""
+    keys = list(rows[0])
+    fmt = lambda v: f"{v:.4f}" if isinstance(v, float) else str(v)  # noqa: E731
+    lines = ["| " + " | ".join(keys) + " |", "|" + "---|" * len(keys)]
+    return "\n".join(lines + ["| " + " | ".join(fmt(r[k]) for k in keys) + " |" for r in rows])
+
+
+def _score_table(title: str, names, port, jax_f32, jax_bf16, rows, card: str) -> str:
+    """A precision's table: each clip's three scores, port / JAX f32 / JAX
+    bf16 (the JAX package on the CPU), the means, and what they are held to."""
+    from vstab_torch.eval import quality as q
+
+    head = "| clip | " + " | ".join(f"{s} port / JAX f32 / JAX bf16" for s in q.SCORES) + " |"
+    lines = [f"{title} ({card})", head, "|" + "---|" * (1 + len(q.SCORES))]
+    trip = lambda a, b, c, s: f"{a[s]:.4f} / {b[s]:.4f} / " + ("-" if c is None else f"{c[s]:.4f}")  # noqa: E731
+    for i, name in enumerate(names):
+        lines.append(f"| {name} | " + " | ".join(
+            trip(port[i], jax_f32[i], None if jax_bf16 is None else jax_bf16[i], s) for s in q.SCORES) + " |")
+    means = lambda recs: None if recs is None else q.mean_scores(recs)  # noqa: E731
+    lines.append("| **mean** | " + " | ".join(
+        trip(means(port), means(jax_f32), means(jax_bf16), s) for s in q.SCORES) + " |")
+    by = {r["score"]: r for r in rows}
+    lines.append("| port - JAX f32, tolerance | " + " | ".join(
+        f"{by[s]['diff']:+.4f}, {by[s]['tolerance']:.4f} {'ok' if by[s]['ok'] else 'MISS'}" for s in q.SCORES) + " |")
+    return "\n".join(lines)
+
+
+def quality_phase(card: str) -> dict:
+    """The port held to the JAX package's quality readings
+    (`tests/torch_quality_reference.json`, written by the JAX package on the
+    CPU), on the clips it scored (drawn by the generator's numpy paths and
+    checked against the file): the N clips of the eval set at 48x256x320
+    through `stabilize` in
+    the default Config (bf16 flow) and with f32 flow, each precision's mean
+    of every score within its tolerance for n = N of the JAX package's f32
+    mean (the JAX bf16 means printed beside, not held: JAX on the CPU rounds
+    the cost volume's products to bf16, the card's kernel sums in f32); the
+    three 720p clips in f32 (n = 3); every gate of the JAX package's
+    integration tests on the mean over the K input-noise draws, in both
+    precisions (`quality.hold_gates`); the three EPE gates in both. Prints a
+    table a precision and raises at the end if anything missed. Returns the
+    eval set's paths (bf16 and f32) for `kernel_phase`."""
+    import vstab_torch
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.eval import quality as q
+    from vstab_torch.flow.train import eval_epe
+
+    t_phase = time.perf_counter()
+    ref = q.load_reference(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                        "torch_quality_reference.json"))
+    n, shape = ref["N"], tuple(ref["settings"]["eval_shape"])
+    t0 = time.perf_counter()
+    clips = q.eval_clips(ref)
+    _say(f"quality: {n} clips of {shape} synthesized in {time.perf_counter() - t0:.1f} s")
+    if [c for c, _ in clips] != ref["eval_set"]["clips"]:
+        raise AssertionError("quality: the eval set's clips are not the reference's")
+    q.check_clips([f for _, f in clips], ref["eval_set"]["clip_sums"], ref["eval_set"]["clip_samples"],
+                  "quality eval set")
+    params = vstab_torch.default_params(vstab_torch.Config(), ckpt_dir="ckpts")
+    misses, paths, summary = [], {}, {"card": card}
+    hw = shape[1:]
+    for dtype in ("bfloat16", "float32"):
+        cfg = q.config({}, dtype)
+        recs, launches, dt = _run_counted(f"quality eval set, {dtype} flow",
+                                          lambda: q.clip_scores(clips, params, cfg, "cuda"))
+        renders = {}
+        for _, frames in clips:
+            d = _bucket(torch.from_numpy(frames).cuda(), params, cfg)[1]
+            renders[d] = renders.get(d, 0) + 1
+        name = "quality_256x320" + ("_f32" if dtype == "float32" else "")
+        paths[name] = {"hw": hw, "n": shape[0], "renders": renders, "chunks": n * _flow_chunks(shape[0] - 1, hw),
+                       "launches": launches, **({"pairs": 8, "dtype": torch.float32} if dtype == "float32" else {})}
+        rows = q.hold_means(ref["eval_set"]["means"]["float32"]["all"], q.mean_scores(recs), ref, dtype, n)
+        _say(_score_table(f"quality: eval set, {n} clips of {shape}, {dtype} flow, {dt:.1f} s",
+                          ref["eval_set"]["clips"], recs, ref["eval_set"]["float32"], ref["eval_set"]["bfloat16"],
+                          rows, card))
+        summary[f"eval_set_{dtype}"] = {"run_s": dt, "renders_by_bucket": renders, "held": rows}
+        misses += [f"eval set {dtype} {r['score']}" for r in rows if not r["ok"]]
+
+    t0 = time.perf_counter()
+    hd = q.hd720_clips(ref)
+    synth_s = time.perf_counter() - t0
+    q.check_clips(hd, ref["hd720"]["clip_sums"], ref["hd720"]["clip_samples"], "quality 720p")
+    cfg = q.config({}, "float32")
+    recs, _, dt = _run_counted("quality 720p, float32 flow", lambda: q.clip_scores(
+        [(c, f) for c, f in zip(ref["hd720"]["clips"], hd)], params, cfg, "cuda"))
+    del hd
+    rows = q.hold_means(ref["hd720"]["mean"], q.mean_scores(recs), ref, "float32", len(recs))
+    _say(_score_table(f"quality: 720p, float32 flow, {dt:.1f} s (synthesis {synth_s:.1f} s)", ref["hd720"]["clips"],
+                      recs, ref["hd720"]["float32"], None, rows, card))
+    summary["hd720_float32"] = {"run_s": dt, "held": rows}
+    misses += [f"720p {r['score']}" for r in rows if not r["ok"]]
+
+    for dtype in ("bfloat16", "float32"):
+        readings, _, dt = _run_counted(f"quality gates, {dtype} flow",
+                                       lambda: q.gate_readings(ref, params, dtype, "cuda"))
+        rows = q.hold_gates(ref, readings, dtype)
+        jax_bf16 = {g["name"]: q.gate_value(g, ref["gates"]["bfloat16"]) for g in ref["gates"]["list"]}
+        _say(f"quality: the JAX package's integration gates, {dtype} flow, mean over {ref['settings']['K']} draws "
+             f"(held to JAX f32 on the CPU; JAX bf16 beside it, not held), {dt:.1f} s ({card})\n" + _rows_table(
+                 [{**{k: v for k, v in r.items() if k != "op"}, "jax_bf16_mean": jax_bf16[r["gate"]]} for r in rows]))
+        summary[f"gates_{dtype}"] = {"run_s": dt, "held": rows}
+        misses += [f"gate {r['gate']} {dtype}" for r in rows if not r["ok"]]
+
+    epe_rows = []
+    for dtype in ("bfloat16", "float32"):
+        for g in ref["epe"]:
+            got = eval_epe(params, FlowConfig(compute_dtype=dtype), hw=(192, 256), n=8, kinds=tuple(g["kinds"]),
+                           occluders=g["occluders"], device="cuda")
+            epe_rows.append({"epe": g["name"], "dtype": dtype, "port_px": got, "jax_f32_px": g["epe_px"],
+                             "gate": f"< {g['threshold']:g}", "ok": bool(got < g["threshold"])})
+    _say(f"quality: EPE gates ({card})\n" + _rows_table(epe_rows))
+    summary["epe"] = epe_rows
+    misses += [f"EPE {r['epe']} {r['dtype']}" for r in epe_rows if not r["ok"]]
+
+    summary["phase_s"] = time.perf_counter() - t_phase
+    _say("quality: " + json.dumps(summary))
+    if misses:
+        raise AssertionError(f"quality: missed {misses}")
+    return paths
+
+
 def dp_train_phase(card: str) -> dict:
     """The data-parallel training step (`make_train_step(..., group=)`)
     through a one-rank group of `BACKEND` (NCCL for the CUDA tensors) over
@@ -2062,6 +2197,7 @@ def main() -> int:
     try:
         paths["train_192x256"] = train_phase(card, tmp)
         paths["eval_256x320"] = eval_phase(card, tmp)
+        paths.update(quality_phase(card))
         # Held in their phases to the launches of the train and eval phases'
         # paths, whose shapes they run: no kernel rows of their own.
         held = {"dp_train_192x256": dp_train_phase(card), "dp_eval_256x320": dp_eval_phase(card, tmp)}

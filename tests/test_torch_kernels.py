@@ -360,7 +360,8 @@ def test_port_imports_no_jax_flax_msgpack_or_vstab():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     rels = {os.path.relpath(p, REPO).replace(os.sep, "/") for p in files}
-    assert {"vstab_torch/flow/train.py", "vstab_torch/eval/metrics.py", "vstab_torch/eval/deepstab.py"} <= rels
+    assert {"vstab_torch/flow/train.py", "vstab_torch/eval/metrics.py", "vstab_torch/eval/deepstab.py",
+            "vstab_torch/eval/quality.py"} <= rels
     assert {f"vstab_torch/dist/{n}.py" for n in ("__init__", "mesh", "init", "halo", "schur_dist", "pipeline_dist")} <= rels
     banned = {"jax", "jaxlib", "flax", "optax", "msgpack", "vstab"}
     # OpenCV only where video files are read and written and where the eval

@@ -52,18 +52,16 @@ def synthetic_clip_set(
     """Fallback dataset: named synthetic shaky clips. Every third clip has
     independently moving textured foreground occluders (`make_dynamic_clip`):
     a planar-only sweep would overstate the metrics."""
+    return [synthetic_clip(i, t, h, w) for i in range(n_clips)]
+
+
+def synthetic_clip(i: int, t: int = 48, h: int = 256, w: int = 320) -> Tuple[str, np.ndarray]:
+    """Clip i of `synthetic_clip_set`: (name, frames)."""
     from vstab_torch.eval.synthetic import make_dynamic_clip, make_shaky_clip
 
-    out = []
-    for i in range(n_clips):
-        if i % 3 == 2:
-            frames, _ = make_dynamic_clip(t=t, h=h, w=w, seed=100 + i)
-            name = f"synthetic_dyn_{i:03d}"
-        else:
-            frames, _ = make_shaky_clip(t=t, h=h, w=w, seed=100 + i)
-            name = f"synthetic_{i:03d}"
-        out.append((name, np.asarray(frames)))
-    return out
+    if i % 3 == 2:
+        return f"synthetic_dyn_{i:03d}", np.asarray(make_dynamic_clip(t=t, h=h, w=w, seed=100 + i)[0])
+    return f"synthetic_{i:03d}", np.asarray(make_shaky_clip(t=t, h=h, w=w, seed=100 + i)[0])
 
 
 def _load_done(results_path: str) -> Dict[str, dict]:
@@ -289,5 +287,6 @@ __all__ = [
     "evaluate_clip",
     "report_table",
     "run_sweep",
+    "synthetic_clip",
     "synthetic_clip_set",
 ]

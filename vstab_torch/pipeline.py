@@ -148,7 +148,17 @@ def stabilize(
     pin_full_f32()
     frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
     params = _on(params, dev)
-    flow = clip_flow(params, frames, cfg)
+    return stabilize_from_flow(frames, clip_flow(params, frames, cfg), cfg)
+
+
+@torch.inference_mode()
+def stabilize_from_flow(
+    frames: torch.Tensor, flow: torch.Tensor, cfg: Config = Config()
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`stabilize` after its clip flow: smoothing + render of frames
+    [T,H,W,3] given their pair flow [T-1,H,W,2]. The flow depends only on
+    cfg.flow, so runs that differ in smoothing or render can share it."""
+    pin_full_f32()
     if not cfg.render.adaptive_max_disp:
         return smooth_and_render(frames, flow, cfg)
     t, h, w, _ = frames.shape
@@ -236,4 +246,5 @@ __all__ = [
     "stabilize",
     "stabilize_batch",
     "stabilize_clip",
+    "stabilize_from_flow",
 ]
