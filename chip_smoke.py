@@ -158,11 +158,28 @@ dtypes and buckets; steps 22 and 12 after it):
    precisions; the three EPE gates in both. One table a precision with the
    card's name and power limit; the phase's time. Step 4 holds the kernels
    at the eval set's shapes in both precisions and its launch counts.
+24. train parity (after step 13): the port's trainer held to the JAX
+   package's own steps, `tests/torch_train_reference.json` and its npz
+   (written by the JAX package on the CPU; this script only reads them):
+   the 500 steps of the recipe that made `flow_082000` from `flow_074000`
+   (lr 1e-4 cosine, 256 scenes, occluders on) replayed on batches rebuilt
+   from the reference's draws, f32 with TF32 off, under cuDNN's
+   deterministic algorithms (under its default ones the end's occluder EPE
+   missed its tolerance in one run of five); every step's loss, grad_norm and epe_finest
+   within the reference's tolerance (3 times how far its twin from
+   1e-6-perturbed parameters parted, at least 1e-4 of the value); the start's and the end's EPE on the reference's held-out pairs
+   (64 a set: in family, perlin, with occluders) within max(3 x the twin's
+   end difference, 0.01 px) of the JAX package's; step 13's warm start
+   (20 steps from `flow_086000`) replayed the same way, its in-family EPE
+   before and after against the JAX package's. A curve of every 50th step
+   and the phase's time, with the card's name and power limit. Step 4 holds
+   the kernels at its shapes and its launch counts (5 cost volumes and
+   4 + 4 warps a step forward, 5 and 4 backward).
 
 Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
-launched all four forward kernels; steps 13 and 18 do the same for the two
-kernels inside the network and their backward kernels.
+launched all four forward kernels; steps 13, 18 and 24 do the same for the
+two kernels inside the network and their backward kernels.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -1784,6 +1801,113 @@ def train_phase(card: str, tmp: str) -> dict:
             "image_warps": {(n, h, w, 3): 4 * steps}, "also_check": [(n, h // 4, w // 4, 3)]}
 
 
+def _curve_table(ref: dict, got: dict, every: int = 50) -> str:
+    """Every `every`-th step of the replay (and the last): each metric of the
+    port, the JAX package, its twin and the tolerance."""
+    from vstab_torch.eval.quality import TRAIN_METRICS
+
+    n = len(got["loss"])
+    lines = ["step " + "".join(f"| {m:^47} " for m in TRAIN_METRICS),
+             "     " + "| port       JAX        twin       tolerance  " * len(TRAIN_METRICS)]
+    for k in sorted({*range(0, n, every), n - 1}):
+        lines.append(f"{k:4d} " + "".join(
+            f"| {got[m][k]:<10.6f} {ref['replay'][m][k]:<10.6f} {ref['twin'][m][k]:<10.6f} {ref['tolerance'][m][k]:<10.3g} "
+            for m in TRAIN_METRICS))
+    return "\n".join(lines)
+
+
+def train_parity_phase(card: str) -> dict:
+    """The port's trainer held to the JAX package's over its own steps
+    (`tests/torch_train_reference.json` and its npz, written by the JAX
+    package on the CPU): the K steps of the `flow_082000` recipe from
+    `flow_074000` replayed on the card (f32, TF32 off) on batches rebuilt
+    from the reference's draws, every step's loss, grad_norm and epe_finest
+    within the reference's tolerance (how far its twin from parameters
+    perturbed by 1e-6 parted from it); the start's and the end's EPE on the
+    reference's 64 held-out pairs of each set within the end-EPE tolerance
+    of the JAX package's; then the warm start of `train_phase` (20 steps from
+    `flow_086000`) replayed the same way, its in-family EPE before and after
+    against the JAX package's. The replay runs with the launch counters
+    zeroed just before and read just after: 5 cost volumes and 4 + 4 warps a
+    step forward, 5 and 4 backward. Prints a curve of every 50th step and
+    raises at the end if anything missed. Returns the path for
+    `kernel_phase`.
+
+    Everything runs under cuDNN's deterministic algorithms, so a run gives
+    the same numbers every time. Under its default f32 ones (which add with
+    atomics) the 500 steps held in five runs of five, but in one the end's
+    occluder EPE parted from the JAX package's by 0.0149 px against a
+    tolerance of 0.0130 (`tests/torch_train_card.py --default-cudnn-replays`
+    repeats such runs)."""
+    from vstab_torch.eval import quality as q
+    from vstab_torch.kernels import reset_launches
+    from vstab_torch.utils.checkpoint import load_params, params_from_jax
+
+    t_phase = time.perf_counter()
+    ref = q.load_train_reference(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                              "torch_train_reference.json"))
+    recipes, dev = ref["settings"]["recipes"], torch.device("cuda")
+    start = {k: v.to(dev) for k, v in params_from_jax(load_params(recipes["replay"]["start"])).items()}
+    steps = recipes["replay"]["steps"]
+    misses, summary = [], {"card": card, "cudnn_deterministic": True}
+    with _deterministic_cudnn():
+        t0 = time.perf_counter()
+        start_epe = q.held_out_epe(ref, start, device=dev)
+        summary["held_out_s"] = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hist, end = q.replay(ref, start, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_launches()
+        end_epe = q.held_out_epe(ref, end, device=dev)
+
+        warm = recipes["warm_start"]
+        p086 = {k: v.to(dev) for k, v in params_from_jax(load_params(warm["start"])).items()}
+        t0 = time.perf_counter()
+        w_before = q.held_out_epe(ref, p086, sets=["in_family"], device=dev)
+        w_hist, w_end = q.replay(ref, p086, run="warm_start", device=dev)
+        w_after = q.held_out_epe(ref, w_end, sets=["in_family"], device=dev)
+        summary["warm_start_s"] = time.perf_counter() - t0
+
+    want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+    if launches != want:
+        misses.append(f"launches {launches}, expected {want}")
+    held = q.hold_steps(ref, hist)
+    misses += [f"step {k} {m}" for m, r in held.items() for k in r["missed"]]
+    epes = {"flow_074000": q.hold_epes(ref, start_epe, ref["held_out"]["flow_074000"]),
+            "replay_end": q.hold_epes(ref, end_epe, ref["held_out"]["replay_end"])}
+    w_jax = ref["warm_start"]
+    epes["warm_start_before"] = q.hold_epes(ref, w_before, w_jax["held_out_before"])
+    epes["warm_start_after"] = q.hold_epes(ref, w_after, w_jax["held_out_after"])
+    misses += [f"EPE {which} {name}" for which, rows in epes.items() for name, r in rows.items() if not r["ok"]]
+    w_steps = {m: max(abs(a - b) for a, b in zip(w_hist[m], w_jax[m])) for m in w_hist}
+
+    _say(f"train parity: {steps} steps of the flow_082000 recipe from flow_074000 against the JAX package's "
+         f"(every 50th step; {card})\n" + _curve_table(ref, hist))
+    _say("train parity: held-out EPE, px, on the reference's 64 pairs a set (port / JAX / tolerance; "
+         f"{card})\n" + _rows_table([{"reading": which, "set": name, **r} for which, rows in epes.items()
+                                     for name, r in rows.items()]))
+    _say("train parity: warm start from flow_086000, 20 steps on the JAX package's draws, in-family EPE "
+         f"{w_before['in_family']['mean_px']:.4f} -> {w_after['in_family']['mean_px']:.4f} px on the card, JAX "
+         f"{w_jax['held_out_before']['in_family']['mean_px']:.4f} -> {w_jax['held_out_after']['in_family']['mean_px']:.4f} "
+         "px on the CPU (the train phase's warm start, the same recipe on the port's own draws, n = 16, read "
+         "0.751 -> 1.017 px on the card before this phase existed); "
+         f"largest step difference {json.dumps(w_steps)} ({card})")
+    summary.update({"steps": steps, "replay_s": wall, "ms_per_step_with_batches": 1e3 * wall / steps,
+                    "launches": launches, "held": held, "epe": epes,
+                    "warm_start_steps_max_abs_diff": w_steps, "phase_s": time.perf_counter() - t_phase})
+    _say("train parity: " + json.dumps(summary))
+    if misses:
+        raise AssertionError(f"train parity: missed {misses[:20]} ({len(misses)} in all)")
+    n, (h, w) = _TRAIN_BATCH, _TRAIN_HW
+    return {"hw": _TRAIN_HW, "pairs": n, "dtype": torch.float32, "chunks": steps, "launches": launches,
+            "image_warps": {(n, h, w, 3): 4 * steps}}
+
+
 def eval_phase(card: str, tmp: str) -> dict:
     """The eval sweep on three synthetic clips, its resume, and the `eval`
     subcommand; returns the sweep's path for `kernel_phase`: six chunks of
@@ -2196,6 +2320,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="vstab_smoke_train_")
     try:
         paths["train_192x256"] = train_phase(card, tmp)
+        paths["train_parity_192x256"] = train_parity_phase(card)
         paths["eval_256x320"] = eval_phase(card, tmp)
         paths.update(quality_phase(card))
         # Held in their phases to the launches of the train and eval phases'

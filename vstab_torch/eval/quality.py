@@ -15,6 +15,15 @@ the same clips through the port and holds the results to that file:
 - the mean of a score over n clips must lie within the tolerance for n of
   the reference's mean over the same clips.
 
+The trainer is held to `tests/torch_train_reference.json` (written by
+`tests/torch_train_reference.py`) and the draws in the npz beside it:
+`replay` takes the reference's steps from the same start on batches rebuilt
+from the reference's own draws, and each step's loss, grad_norm and
+epe_finest must lie within the reference's per-step tolerance (how far a
+twin of the reference, started from parameters perturbed by 1e-6, parted
+from it); `held_out_epe` scores parameters on the reference's held-out
+pairs by the EPE formula of `eval_epe`.
+
 The tests on the CPU and `chip_smoke.py` on the card call it.
 """
 
@@ -35,6 +44,7 @@ from vstab_torch.eval.metrics import evaluate_videos
 
 SCORES = ("stability", "cropping", "distortion")
 NOISE_AMP = 1e-4
+TRAIN_METRICS = ("loss", "grad_norm", "epe_finest")
 
 
 def load_reference(path: str) -> dict:
@@ -281,20 +291,163 @@ def clip_scores(named_frames, params, cfg: Config, device) -> List[dict]:
         return [f.result() for f in futures]
 
 
+# ---------------------------------------------------------------------------
+# The trainer against the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def load_train_reference(path: str) -> dict:
+    """The training reference: the JSON at `path` (the repository's
+    `tests/torch_train_reference.json`), its draws from the npz beside it
+    under "arrays"."""
+    ref = load_reference(path)
+    with np.load(os.path.splitext(path)[0] + ".npz") as z:
+        ref["arrays"] = {k: z[k] for k in z.files}
+    return ref
+
+
+def reference_draws(ref: dict, prefix: str, device) -> Dict[str, torch.Tensor]:
+    """Every step's (or held-out batch's) draws of `prefix` ("replay",
+    "warm_start", "held/<set>"), stacked over the steps, on `device`: one
+    upload for the run, not one a step."""
+    n = len(prefix) + 1
+    return {name[n:]: torch.from_numpy(v).to(device) for name, v in ref["arrays"].items()
+            if name.startswith(prefix + "/")}
+
+
+def draws_at(stacked: Dict[str, torch.Tensor], k: int) -> dict:
+    """Step k of `reference_draws` in the form `_batch_from_draws` takes."""
+    d = {name: v[k] for name, v in stacked.items()}
+    occ = [{"tex": d["occ_tex"][j].long(), **{f: d[f"occ_{f}"][j] for f in ("cy", "cx", "ry", "rx", "move", "on")}}
+           for j in range(d["occ_tex"].shape[0] if "occ_tex" in d else 0)]
+    return {"idx": d["idx"].long(), "blur": d["blur"].long(), "angle": d["angle"], "scale": d["scale"],
+            "txy": d["txy"], "coarse": d["coarse"], "occluders": occ, "gain": d["gain"], "offset": d["offset"]}
+
+
+def reference_pool(ref: dict, name: str, n: int, seed: int, kinds) -> np.ndarray:
+    """The port's `make_scene_pool(n, h, w, seed, kinds)`, checked against the
+    sum and values the reference kept of its pool `name`."""
+    from vstab_torch.flow.train import make_scene_pool
+
+    pool = make_scene_pool(n, *ref["settings"]["hw"], seed=seed, kinds=tuple(kinds))
+    digest = ref["pools"][name]
+    check_clips([pool], [digest["sum"]], [digest["sample"]], f"scene pool {name}")
+    return pool
+
+
+def replay(ref: dict, params, run: str = "replay", steps: Optional[int] = None, device=None):
+    """The first `steps` (all) steps of the reference's `run` ("replay" or
+    "warm_start") from `params` (its start) through the port's trainer: the
+    pool checked against the reference's, `_trainable`, `make_optimizer` with
+    the run's cosine schedule, `make_train_step`, and each step's batch from
+    `_batch_from_draws` on the reference's draws of that step. f32, TF32 off.
+    Returns ({metric: [per step]}, end state dict); the metrics are read
+    back once, at the end."""
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.pipeline import resolve_device
+
+    dev = resolve_device(device)
+    pin_full_f32()
+    r = ref["settings"]["recipes"][run]
+    steps = r["steps"] if steps is None else steps
+    scenes = torch.from_numpy(reference_pool(ref, run, r["n_scenes"], r["pool_seed"], r["kinds"])).to(dev)
+    net = T._trainable(params, FlowConfig(compute_dtype="float32"), dev)
+    opt = T.make_optimizer(net.parameters(), r["lr"])
+    step = T.make_train_step(net, opt, "supervised", T.cosine_schedule(opt, r["steps"], alpha=r["alpha"]))
+    draws = reference_draws(ref, run, dev)
+    out = []
+    for k in range(steps):
+        batch = T._batch_from_draws(scenes, draws_at(draws, k), ref["settings"]["max_disp"], blur=True)
+        ms = step(batch)
+        out.append(torch.stack([ms[m] for m in TRAIN_METRICS]))
+    hist = torch.stack(out).cpu().double().numpy()
+    return {m: hist[:, i].tolist() for i, m in enumerate(TRAIN_METRICS)}, T._state(net)
+
+
+def held_out_epe(ref: dict, params, sets=None, device=None) -> Dict[str, dict]:
+    """Mean EPE of `params` on the reference's held-out pairs of each set (all
+    by default): batches from `_batch_from_draws(..., blur=False)` on the
+    reference's draws, flow by `estimate_flow`, and `eval_epe`'s formula (per
+    batch the mean of sqrt(|flow - gt|^2 + 1e-12), then the mean over the
+    batches)."""
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow.pwcnet import estimate_flow
+    from vstab_torch.flow.train import _batch_from_draws
+    from vstab_torch.pipeline import resolve_device
+
+    dev = resolve_device(device)
+    pin_full_f32()
+    held = ref["settings"]["held_out"]
+    cfg = FlowConfig(compute_dtype="float32")
+    p = {k: v.to(dev, torch.float32) for k, v in params.items()}
+    out = {}
+    for name in held["sets"] if sets is None else sets:
+        kinds, _ = held["sets"][name]
+        scenes = torch.from_numpy(reference_pool(ref, f"held/{name}", 8, held["seed"], kinds)).to(dev)
+        draws = reference_draws(ref, f"held/{name}", dev)
+        per = []
+        for i in range(draws["idx"].shape[0]):
+            b = _batch_from_draws(scenes, draws_at(draws, i), ref["settings"]["max_disp"], blur=False)
+            fl = estimate_flow(p, b["im1"], b["im2"], cfg)
+            per.append(torch.mean(torch.sqrt(torch.sum((fl - b["flow"]) ** 2, -1) + 1e-12)))
+        per = torch.stack(per).cpu().double().numpy()
+        out[name] = {"mean_px": float(per.mean()), "per_batch_px": per.tolist()}
+    return out
+
+
+def hold_steps(ref: dict, got: Dict[str, list]) -> Dict[str, dict]:
+    """Each metric of the port's replay against the reference's over the
+    steps `got` holds: |port - reference| within the reference's tolerance
+    at every step. A row a metric: the steps held, the steps missed, the
+    largest |diff| / tolerance and its step."""
+    rows = {}
+    for m in TRAIN_METRICS:
+        n = len(got[m])
+        diff = np.abs(np.asarray(got[m]) - np.asarray(ref["replay"][m][:n]))
+        ratio = diff / np.asarray(ref["tolerance"][m][:n])
+        worst = int(np.argmax(ratio))
+        rows[m] = {"steps": n, "missed": [int(k) for k in np.nonzero(ratio > 1.0)[0]],
+                   "worst_step": worst, "worst_ratio": float(ratio[worst]), "worst_diff": float(diff[worst]),
+                   "ok": bool(np.all(ratio <= 1.0))}
+    return rows
+
+
+def hold_epes(ref: dict, got: Dict[str, dict], want: Dict[str, dict]) -> Dict[str, dict]:
+    """The port's mean EPE of each set in `got` against the reference's
+    reading `want` (an entry of `held_out`), within the reference's end-EPE
+    tolerance of that set."""
+    rows = {}
+    for name, g in got.items():
+        tol = ref["epe_tolerance"][name]
+        diff = g["mean_px"] - want[name]["mean_px"]
+        rows[name] = {"reference_px": want[name]["mean_px"], "port_px": g["mean_px"], "diff": diff,
+                      "tolerance": tol, "ok": bool(abs(diff) <= tol)}
+    return rows
+
+
 __all__ = [
     "analytic_flow",
     "check_clips",
     "clip_scores",
     "config",
+    "draws_at",
     "eval_clips",
     "gate_clip",
     "gate_readings",
     "gate_value",
     "hd720_clips",
+    "held_out_epe",
+    "hold_epes",
     "hold_gates",
     "hold_means",
+    "hold_steps",
     "load_reference",
+    "load_train_reference",
     "mean_scores",
     "noisy",
+    "reference_draws",
+    "reference_pool",
+    "replay",
     "tolerance",
 ]
