@@ -1,0 +1,7 @@
+"""render_sweep_ms_per_frame.blocked: ms a frame of the blocked pipeline's render sweep (its logged stage_s.render)."""
+
+from h100bench import readers
+
+
+def read(ctx):
+    return readers.blocked_stage_ms_per_frame(ctx, "render")
