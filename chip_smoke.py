@@ -1102,7 +1102,7 @@ class _PlainFetch:
     """`tensor.cpu()` at the drain, in place of the blocked pipeline's fetch
     on a second stream: what `fetch_ab` compares it with."""
 
-    def __init__(self, x: torch.Tensor, copy_stream):
+    def __init__(self, x: torch.Tensor, copy_stream, host):
         self._x = x
 
     def result(self) -> np.ndarray:

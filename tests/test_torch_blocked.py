@@ -92,7 +92,8 @@ def test_blocked_matches_whole_clip(clip, params, method, crop):
     assert stats["max_disp"] == d
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
     assert set(stats) == {
-        "frames", "block_len", "max_disp", "wall_s", "stage_s", "fps_processed",
+        "frames", "block_len", "max_disp", "wall_s", "stage_s", "host_s", "pinned_bytes",
+        "fps_processed",
         "resume_cached_blocks",
     }
     assert set(stats["stage_s"]) == {"flow", "scale", "render"}

@@ -97,7 +97,8 @@ def test_stabilize_auto_blocked_switch(tmp_path, cfg_json, src_video):
     assert r.returncode == 0, r.stderr[-3000:]
     rec = json.loads(r.stdout.strip().splitlines()[-1])
     assert set(rec) == {
-        "frames", "block_len", "max_disp", "wall_s", "stage_s", "fps_processed",
+        "frames", "block_len", "max_disp", "wall_s", "stage_s", "host_s", "pinned_bytes",
+        "fps_processed",
         "resume_cached_blocks", "input", "output", "fps",
     }
     assert rec["frames"] == 40 and rec["block_len"] == 8

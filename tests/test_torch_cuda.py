@@ -1070,3 +1070,141 @@ def test_stabilize_checked_on_the_card_equals_stabilize(cuda, deterministic_cudn
 
 if __name__ == "__main__":
     _sharded_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+
+
+# The spans of `vstab_torch.utils.trace` on the card: a 720p clip of the
+# default Config with the checkpoint under ckpts/, drawn on the card (a
+# smooth random scene shifted a few pixels a frame).
+@pytest.fixture(scope="module")
+def clip_720p():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    import torch.nn.functional as F
+
+    import vstab_torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    scene = F.interpolate(torch.rand((1, 3, 90, 160), generator=g, device="cuda"),
+                          size=(720 + 32, 1280 + 32), mode="bicubic", align_corners=False)
+    shifts = torch.randint(0, 33, (48, 2), generator=g, device="cuda").tolist()
+    frames = torch.stack([scene[0, :, y : y + 720, x : x + 1280] for y, x in shifts])
+    frames = frames.permute(0, 2, 3, 1).clamp(0, 1).contiguous()
+    cfg = vstab_torch.Config()
+    ckpts = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ckpts")
+    params = vstab_torch.default_params(cfg, ckpt_dir=ckpts)
+    vstab_torch.stabilize(frames, params, cfg)  # builds the kernels, warms cuDNN
+    return frames, params, cfg
+
+
+def test_stage_spans_cover_a_720p_call(clip_720p):
+    """The stream ms of the flow, smooth, warp-field and render spans sum to
+    within 5% of the call's wall time between two synchronisations: what
+    `bench.measure(stages=True)` reports covers the call."""
+    import time
+
+    import vstab_torch
+    from vstab_torch.utils import trace
+
+    frames, params, cfg = clip_720p
+    trace.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace.recording():
+        vstab_torch.stabilize(frames, params, cfg)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    ms = {r["name"]: r["device_ms"] for r in trace.records()}
+    trace.clear()
+    staged = sum(ms[k] for k in ("vstab.flow", "vstab.smooth", "vstab.warp_field", "vstab.render"))
+    print(f"720p call {wall_ms:.2f} ms, spans {ms}")
+    assert abs(staged - wall_ms) <= 0.05 * wall_ms, (staged, wall_ms, ms)
+
+
+def _syncs(fn):
+    """fn() under `set_sync_debug_mode("warn")` and `trace.recording()`: each
+    synchronising call made from vstab_torch's code, as (its innermost line
+    there, the innermost open span)."""
+    import traceback
+    import warnings
+
+    from vstab_torch.utils import trace
+
+    found = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1] if os.sep + "vstab_torch" + os.sep in f.filename]
+            if ours:
+                stack = [s.name for s in trace._THREAD.stack if s.record]
+                where = ours[-1].filename.split(os.sep + "vstab_torch" + os.sep)[-1]
+                found.append((f"{where}:{ours[-1].lineno}", stack[-1] if stack else None))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.recording():
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    trace.clear()
+    return found
+
+
+# Host syncs counted on the card (NVIDIA H100 80GB HBM3, torch 2.11): each
+# one's line and enclosing span are listed in PERF.md. A clip's are uploads
+# of host-made constants (pageable memory) and the bucket's read-back; a
+# training step reads nothing back.
+STABILIZE_SYNCS = 13
+TRAIN_STEP_SYNCS = 0
+
+
+def test_host_syncs_of_a_clip_and_a_training_step(clip_720p):
+    import vstab_torch
+    from vstab_torch.core.config import FlowConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.flow.pwcnet import init_params
+
+    frames, params, cfg = clip_720p
+    clip_syncs = _syncs(lambda: vstab_torch.stabilize(frames, params, cfg))
+
+    fcfg = FlowConfig(compute_dtype="float32")
+    net = T._trainable(init_params(0, fcfg, "cuda"), fcfg, torch.device("cuda"))
+    opt = T.make_optimizer(net.parameters(), lr=1e-4)
+    step = T.make_train_step(net, opt, "supervised", T.cosine_schedule(opt, 8000, 0.02))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scenes = torch.rand((16, 192, 256, 3), device="cuda")
+    step(T._sample_batch(gen, scenes, 8, 12.0))  # the optimizer's state is made on the first step
+    batch = T._sample_batch(gen, scenes, 8, 12.0)
+    step_syncs = _syncs(lambda: step(batch))
+    print(f"stabilize syncs {clip_syncs}; train step syncs {step_syncs}")
+    assert (len(clip_syncs), len(step_syncs)) == (STABILIZE_SYNCS, TRAIN_STEP_SYNCS), (
+        clip_syncs, step_syncs)
+
+
+def test_blocked_pinned_bytes_are_its_buffers(cuda):
+    """`pinned_bytes` is the two staging buffers of each sweep, every motion
+    fetch and the render fetches of every frame; `host_s` has its seven keys."""
+    import numpy as np
+
+    import vstab_torch
+    from vstab_torch import pipeline_blocked as pb
+    from vstab_torch.core import config as tcfg
+    from vstab_torch.eval.synthetic import make_shaky_clip
+
+    cfg = tcfg.Config(flow=tcfg.FlowConfig(pyramid_channels=(8, 12, 16), estimator_channels=(16, 12),
+                                           compute_dtype="float32", output_level=1))
+    params = vstab_torch.default_params(cfg, seed=0, ckpt_dir="/nonexistent")
+    frames, _ = make_shaky_clip(t=21, h=48, w=64, seed=5)
+    u8 = (np.clip(frames, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    stats = pb._run_blocked(lambda: ((u8[i : i + 8], i) for i in range(0, 21, 8)),
+                            lambda blk, start: None, 21, params, cfg, 8, torch.device("cuda"))
+    motion = pb._block_motion(params, torch.from_numpy(u8[:9]).cuda(), cfg)
+    frame = 48 * 64 * 3
+    want = 2 * 9 * frame + 3 * motion.numel() * 4 + 2 * 8 * frame + 21 * frame * 4
+    assert stats["pinned_bytes"] == want
+    assert set(stats["host_s"]) == {"prefetch_wait", "staging_wait", "stage_copy", "dispatch",
+                                    "pinned_alloc", "fetch_wait", "drain_copy"}
+    assert stats["host_s"]["pinned_alloc"] > 0 and stats["host_s"]["dispatch"] > 0

@@ -11,8 +11,8 @@ line with the median:
   {"metric": "stabilize_720p_fps", "value": N, "unit": "frames/s",
    "device": "<card name>, <power limit>"}
 
-With `--stages` the flow / smooth / render times of one more run go to
-stderr as one JSON line. There is no CPU mode: without a CUDA device it
+With `--stages` the flow / smooth / render times of one more run, read from
+its spans (`vstab_torch.utils.trace`), go to stderr as one JSON line. There is no CPU mode: without a CUDA device it
 raises, because a time taken on the CPU says nothing about the card.
 """
 
@@ -28,17 +28,8 @@ import time
 import torch
 
 from vstab_torch.core.config import Config
-from vstab_torch.pipeline import (
-    Params,
-    clip_flow,
-    default_params,
-    path_to_flow,
-    render_bucket,
-    resolve_device,
-    smooth_paths,
-    stabilize,
-)
-from vstab_torch.render.render import render_stabilized
+from vstab_torch.pipeline import Params, default_params, resolve_device, stabilize
+from vstab_torch.utils import trace
 
 
 def card() -> str:
@@ -65,11 +56,13 @@ def measure(
 ) -> dict:
     """One warm run of `stabilize` on CUDA frames [T,H,W,3], then `iters`
     timed ones: {"frames_per_s" (from the median run), "run_s" (every run),
-    "peak_mem_gb"}, and with `stages` the times of flow, smooth (solve, bound
-    and bucket) and render in one more run, with the bound and the bucket."""
+    "peak_mem_gb"}, and with `stages` the stream ms of flow (`vstab.flow`),
+    smooth (`vstab.smooth` + `vstab.bucket`: solve, bound and bucket) and
+    render (`vstab.warp_field` + `vstab.render`) in one more run recorded by
+    `trace`, with the bound and the bucket."""
     if not frames.is_cuda:
         raise RuntimeError("bench.measure times the CUDA path: give it frames on the card")
-    t, h, w, _ = frames.shape
+    t = frames.shape[0]
     torch.cuda.reset_peak_memory_stats()
     stabilize(frames, params, cfg)
     runs = [timed(lambda: stabilize(frames, params, cfg))[1] for _ in range(iters)]
@@ -79,18 +72,23 @@ def measure(
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if stages:
-        flow, dt = timed(lambda: clip_flow(params, frames, cfg))
-        res["flow_ms"] = dt * 1e3
-
-        def solve():
-            path, _ = smooth_paths(flow, cfg, (h, w))
-            return (path,) + render_bucket(path, cfg, (h, w))
-
-        (path, bound, d), dt = timed(solve)
-        res.update(smooth_ms=dt * 1e3, residual_bound_px=bound, max_disp=d)
-        _, dt = timed(lambda: render_stabilized(
-            frames, path_to_flow(path, cfg, (h, w)), cfg.render, max_disp=d))
-        res["render_ms"] = dt * 1e3
+        with trace.recording():
+            stabilize(frames, params, cfg)
+        recs = trace.records()
+        root = next(r["id"] for r in reversed(recs) if r["name"] == "vstab.stabilize")
+        ms: dict = {}
+        for r in recs:
+            if r["root"] == root and r["device_ms"] is not None:
+                ms[r["name"]] = ms.get(r["name"], 0.0) + r["device_ms"]
+        # no bucket where cfg.render.adaptive_max_disp is off
+        bucket = next((r["attrs"] for r in recs if r["root"] == root and r["name"] == "vstab.bucket"), {})
+        res.update(
+            flow_ms=ms["vstab.flow"],
+            smooth_ms=ms["vstab.smooth"] + ms.get("vstab.bucket", 0.0),
+            render_ms=ms["vstab.warp_field"] + ms["vstab.render"],
+            residual_bound_px=bucket.get("bound_px"),
+            max_disp=bucket.get("max_disp"),
+        )
     return res
 
 

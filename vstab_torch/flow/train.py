@@ -50,6 +50,7 @@ from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.flow.pwcnet import PWCNet, build_net, estimate_flow, init_params
 from vstab_torch.kernels import bilinear_warp
 from vstab_torch.kernels.warp import UNBOUNDED
+from vstab_torch.utils import trace
 
 Batch = Dict[str, torch.Tensor]
 Draws = Dict[str, Any]
@@ -281,6 +282,7 @@ def make_train_step(
     global batch's and `grad_norm` is equal on every rank."""
     loss_fn = make_loss(net, mode)
     params = list(net.parameters())
+    on_card = params[0].is_cuda
     size = 1
     if group is not None:
         size = dist.get_world_size(group)
@@ -296,20 +298,24 @@ def make_train_step(
         return _views(flat.div_(size), tensors)
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
-        if group is not None:
-            _check_local_batch(next(iter(batch.values())).shape[0], group)
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch)
-        loss.backward()
-        metrics = {"loss": loss.detach(), **aux}
-        if group is not None:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            torch._foreach_copy_(grads, mean_over_group(grads))
-            metrics = dict(zip(metrics, mean_over_group(list(metrics.values()))))
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return {"loss": metrics.pop("loss"), "grad_norm": optimizer.grad_norm, **metrics}
+        with trace.span("vstab.train.step"):
+            if group is not None:
+                _check_local_batch(next(iter(batch.values())).shape[0], group)
+            optimizer.zero_grad(set_to_none=True)
+            with trace.span("vstab.train.forward", device=on_card):
+                loss, aux = loss_fn(batch)
+            with trace.span("vstab.train.backward", device=on_card):
+                loss.backward()
+            metrics = {"loss": loss.detach(), **aux}
+            if group is not None:
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                torch._foreach_copy_(grads, mean_over_group(grads))
+                metrics = dict(zip(metrics, mean_over_group(list(metrics.values()))))
+            with trace.span("vstab.train.optimizer", device=on_card):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
+            return {"loss": metrics.pop("loss"), "grad_norm": optimizer.grad_norm, **metrics}
 
     return train_step
 
@@ -498,9 +504,10 @@ def _sample_batch(
     ground-truth flow mixes a global similarity (translation +-max_disp,
     rotation +-0.02 rad, scale +-2%) with a low-frequency residual field,
     which covers the inference regime (shake is a global affine per pair)."""
-    s, h, w, _ = scenes.shape
-    draws = _draw_sample(gen, s, n, (h, w), occluders)
-    return _batch_from_draws(scenes, draws, max_disp, blur)
+    with trace.span("vstab.train.batch"):
+        s, h, w, _ = scenes.shape
+        draws = _draw_sample(gen, s, n, (h, w), occluders)
+        return _batch_from_draws(scenes, draws, max_disp, blur)
 
 
 # ---------------------------------------------------------------------------

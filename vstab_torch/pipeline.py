@@ -35,6 +35,7 @@ from vstab_torch.smooth.affine import (
     smooth_path,
     stabilizing_transforms,
 )
+from vstab_torch.utils import trace
 from vstab_torch.utils.checkpoint import latest_checkpoint, load_params, params_from_jax
 
 log = logging.getLogger("vstab_torch.pipeline")
@@ -78,30 +79,32 @@ def clip_flow(
     n_pairs = t - 1
     n_chunks = -(-n_pairs // pair_chunk)
     pad = n_chunks * pair_chunk + 1 - t
-    if pad:  # repeat the last frame: zero flow for the padded pairs
-        frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])], dim=0)
-    flows = [
-        estimate_flow_pairs(
-            params, frames[i * pair_chunk : (i + 1) * pair_chunk + 1], cfg.flow
-        )
-        for i in range(n_chunks)
-    ]
-    return torch.cat(flows, dim=0)[:n_pairs]
+    with trace.span("vstab.flow", device=frames.is_cuda):
+        if pad:  # repeat the last frame: zero flow for the padded pairs
+            frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])], dim=0)
+        flows = []
+        for i in range(n_chunks):
+            with trace.span("vstab.flow.chunk"):
+                flows.append(estimate_flow_pairs(
+                    params, frames[i * pair_chunk : (i + 1) * pair_chunk + 1], cfg.flow
+                ))
+        return torch.cat(flows, dim=0)[:n_pairs]
 
 
 @torch.inference_mode()
 def smooth_paths(flow: torch.Tensor, cfg: Config, hw: Tuple[int, int]):
     """Flow -> (compact per-frame path, diagnostics): stabilizing affine
     warps [T,2,3] or grid displacements [T,GH,GW,2]."""
-    if cfg.smooth.method == "affine":
-        path = chain_path(fit_affine_from_flow(flow))
-        sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
-        warps = stabilizing_transforms(path, sm)
-        return warps, {"warps": warps, "path": path.transforms, "smoothed": sm.transforms}
-    if cfg.smooth.method == "sparse_ls":
-        from vstab_torch.smooth.sparse_ls import smooth_grid_field
+    with trace.span("vstab.smooth", device=flow.is_cuda):
+        if cfg.smooth.method == "affine":
+            path = chain_path(fit_affine_from_flow(flow))
+            sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
+            warps = stabilizing_transforms(path, sm)
+            return warps, {"warps": warps, "path": path.transforms, "smoothed": sm.transforms}
+        if cfg.smooth.method == "sparse_ls":
+            from vstab_torch.smooth.sparse_ls import smooth_grid_field
 
-        return smooth_grid_field(flow, hw, cfg.smooth)
+            return smooth_grid_field(flow, hw, cfg.smooth)
     raise ValueError(f"unknown smoothing method: {cfg.smooth.method}")
 
 
@@ -109,19 +112,23 @@ def smooth_paths(flow: torch.Tensor, cfg: Config, hw: Tuple[int, int]):
 def path_to_flow(path: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.Tensor:
     """Per-frame path -> dense backward-warp flow [T,H,W,2]."""
     h, w = hw
-    if cfg.smooth.method == "affine":
-        return affine_to_flow(path, h, w)
-    return grid_to_flow(path, h, w)
+    with trace.span("vstab.warp_field", device=path.is_cuda):
+        if cfg.smooth.method == "affine":
+            return affine_to_flow(path, h, w)
+        return grid_to_flow(path, h, w)
 
 
 def render_bucket(path, cfg: Config, hw: Tuple[int, int]) -> Tuple[float, int]:
     """(residual bound in px, render bucket) of a solved per-frame path
     (tensor or array [T,...]): the one place where the adaptive bound of the
     render warps is derived. The bound is computed where the path lies and
-    one scalar is read back to the host."""
+    one scalar is read back to the host: the clip's one wait for the card."""
     h, w = hw
-    bound = float(residual_disp_bound(path, h, w, cfg.smooth.method))
-    return bound, pick_max_disp(bound, cfg.render)
+    with trace.span("vstab.bucket", device=torch.is_tensor(path) and path.is_cuda) as s:
+        bound = float(residual_disp_bound(path, h, w, cfg.smooth.method))
+        d = pick_max_disp(bound, cfg.render)
+        s.set(bound_px=bound, max_disp=d)
+    return bound, d
 
 
 @torch.inference_mode()
@@ -146,9 +153,12 @@ def stabilize(
     the bucket `pick_max_disp` derives from the solved path."""
     dev = resolve_device(device)
     pin_full_f32()
-    frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
-    params = _on(params, dev)
-    return stabilize_from_flow(frames, clip_flow(params, frames, cfg), cfg)
+    with trace.span("vstab.stabilize") as s:
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        t, h, w, _ = frames.shape
+        s.set(t=t, h=h, w=w)
+        params = _on(params, dev)
+        return stabilize_from_flow(frames, clip_flow(params, frames, cfg), cfg)
 
 
 @torch.inference_mode()
@@ -185,21 +195,23 @@ def stabilize_batch(
     cfg.render.max_residual_disp). The 'auto' crop scale stays per clip."""
     dev = resolve_device(device)
     pin_full_f32()
-    frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
-    params = _on(params, dev)
-    b, t, h, w, _ = frames.shape
-    paths = torch.stack(
-        [smooth_paths(clip_flow(params, fr, cfg), cfg, (h, w))[0] for fr in frames]
-    )
-    max_disp = None
-    if cfg.render.adaptive_max_disp:
-        _, max_disp = render_bucket(paths.flatten(0, 1), cfg, (h, w))
-    out = torch.empty_like(frames)
-    for i in range(b):
-        out[i] = render_stabilized(
-            frames[i], path_to_flow(paths[i], cfg, (h, w)), cfg.render, max_disp=max_disp
+    with trace.span("vstab.stabilize_batch") as s:
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        b, t, h, w, _ = frames.shape
+        s.set(b=b, t=t, h=h, w=w)
+        params = _on(params, dev)
+        paths = torch.stack(
+            [smooth_paths(clip_flow(params, fr, cfg), cfg, (h, w))[0] for fr in frames]
         )
-    return out
+        max_disp = None
+        if cfg.render.adaptive_max_disp:
+            _, max_disp = render_bucket(paths.flatten(0, 1), cfg, (h, w))
+        out = torch.empty_like(frames)
+        for i in range(b):
+            out[i] = render_stabilized(
+                frames[i], path_to_flow(paths[i], cfg, (h, w)), cfg.render, max_disp=max_disp
+            )
+        return out
 
 
 def _params_match(params: Params, flow_cfg: FlowConfig) -> bool:

@@ -32,6 +32,14 @@ How the host and the card overlap:
   * every block is padded to one shape, so a run gives the kernels and cuDNN
     one set of shapes; every sweep logs per-block progress.
 
+Where the host's time goes: the call's stats give `stage_s` (the sweeps, from
+the spans `vstab.blocked.motion_sweep`, `.solve` + `.scale_sweep` and
+`.render_sweep`), `host_s` (the self seconds of the per-block host spans:
+waiting for the prefetch thread, for a staging buffer or for a fetch;
+copying into a staging buffer or out of a fetch; dispatching a block;
+allocating pinned memory) and `pinned_bytes` (the pinned host memory the call
+asked for). They are timed whether or not `vstab_torch.utils.trace` records.
+
 Fault tolerance: `stabilize_video_blocked` keeps a `<out>.resume/` directory
 with per-block motion results (the expensive sweep) and the solved scale; a
 killed run resumes at block granularity, cached motion blocks are loaded, not
@@ -52,7 +60,7 @@ import queue
 import shutil
 import threading
 import time
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +83,7 @@ from vstab_torch.smooth.affine import (
     stabilizing_transforms,
 )
 from vstab_torch.smooth.sparse_ls import smooth_profiles, vertex_motion
+from vstab_torch.utils import trace
 
 log = logging.getLogger("vstab_torch.blocked")
 
@@ -167,6 +176,31 @@ def _pad_block(x: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+_HOST_SPANS = ("prefetch_wait", "staging_wait", "stage_copy", "dispatch", "pinned_alloc",
+               "fetch_wait", "drain_copy")
+
+
+class _Host:
+    """The host's side of one blocked call: `s`, the self seconds of each
+    per-block span `vstab.blocked.<key>` (keys `_HOST_SPANS`), and the bytes
+    of pinned host memory asked for."""
+
+    def __init__(self):
+        self.s: Dict[str, float] = dict.fromkeys(_HOST_SPANS, 0.0)
+        self.pinned_bytes = 0
+
+    def span(self, key: str):
+        return trace.span("vstab.blocked." + key, into=self.s)
+
+    def empty(self, shape, dtype: torch.dtype, pinned: bool) -> torch.Tensor:
+        if not pinned:
+            return torch.empty(shape, dtype=dtype)
+        with self.span("pinned_alloc"):
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+        self.pinned_bytes += buf.numel() * buf.element_size()
+        return buf
+
+
 class _Staging:
     """Two alternating host staging buffers of one sweep's uploads. For a
     CUDA device they are pinned and the upload is asynchronous; buffer i%2 is
@@ -174,18 +208,18 @@ class _Staging:
     upload has completed. For the CPU the buffer itself is the block (the
     stages run synchronously and write into new tensors)."""
 
-    def __init__(self, shape, np_dtype, device: torch.device):
-        self.device = device
-        cuda = device.type == "cuda"
+    def __init__(self, shape, np_dtype, device: torch.device, host: _Host):
+        self.device, self.host = device, host
         dtype = torch.from_numpy(np.empty(0, np_dtype)).dtype
-        self._bufs = [torch.empty(shape, dtype=dtype, pin_memory=cuda) for _ in range(2)]
+        self._bufs = [host.empty(shape, dtype, device.type == "cuda") for _ in range(2)]
         self._uploaded = [None, None]
 
     def buffer(self, i: int) -> np.ndarray:
         """The numpy view of buffer i%2, free to be overwritten."""
         ev = self._uploaded[i % 2]
         if ev is not None:
-            ev.synchronize()
+            with self.host.span("staging_wait"):
+                ev.synchronize()
         return self._bufs[i % 2].numpy()
 
     def upload(self, i: int) -> torch.Tensor:
@@ -213,15 +247,15 @@ class _Fetch:
     33x1080x1920 (`chip_smoke.py`'s fetch A/B, NVIDIA H100 80GB HBM3,
     700.00 W)."""
 
-    def __init__(self, x: torch.Tensor, copy_stream):
-        self._ready = None
+    def __init__(self, x: torch.Tensor, copy_stream, host: _Host):
+        self._ready, self._spans = None, host
         if not x.is_cuda:
             self._host = x
             return
         done = torch.cuda.Event()
         done.record()
         self._keep = x
-        self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        self._host = host.empty(x.shape, x.dtype, True)
         with torch.cuda.stream(copy_stream):
             copy_stream.wait_event(done)
             self._host.copy_(x, non_blocking=True)
@@ -230,7 +264,8 @@ class _Fetch:
 
     def result(self) -> np.ndarray:
         if self._ready is not None:
-            self._ready.synchronize()
+            with self._spans.span("fetch_wait"):
+                self._ready.synchronize()
             self._keep = None
         return self._host.numpy()
 
@@ -240,11 +275,12 @@ class _Fetch:
 # ---------------------------------------------------------------------------
 
 
-def _prefetch(gen: Iterator, depth: int = 2) -> Iterator:
+def _prefetch(gen: Iterator, depth: int = 2, into: Optional[Dict[str, float]] = None) -> Iterator:
     """Run `gen` in a daemon thread with a bounded queue. The producer
     decodes block i+1/i+2 while the consumer's device work on block i is in
-    flight. Exceptions propagate; early consumer exit unblocks the producer
-    via the stop flag."""
+    flight; the consumer's waits are the span `vstab.blocked.prefetch_wait`
+    (its seconds added to `into`). Exceptions propagate; early consumer exit
+    unblocks the producer via the stop flag."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     sentinel = object()
@@ -275,7 +311,8 @@ def _prefetch(gen: Iterator, depth: int = 2) -> Iterator:
     th.start()
     try:
         while True:
-            item = q.get()
+            with trace.span("vstab.blocked.prefetch_wait", into=into):
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]
@@ -511,15 +548,85 @@ def _run_blocked(
     ([<=b,H,W,3] uint8-or-f32, start) host blocks covering frames [0, t);
     `params` are on `dev`."""
     pin_full_f32()
-    t0 = time.perf_counter()
-    n_blocks = -(-t // b)
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    sweep_s: Dict[str, float] = {}
+    host = _Host()
+    with trace.span("vstab.blocked", into=sweep_s, t=t, block_len=b):
+        n_blocks = -(-t // b)
+        copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        with trace.span("vstab.blocked.motion_sweep", into=sweep_s):
+            motion, hw, cached_blocks = _motion_sweep(
+                make_chunks, t, params, cfg, b, dev, resume_state, copy_stream, host, n_blocks)
 
-    # --- sweep 1: per-pair motion. Blocks get a 1-frame left halo (the
-    # previous block's last frame) so every consecutive pair is covered; the
-    # first block's halo is a duplicate of frame 0 whose pair (a frame with
-    # itself) is discarded. Uniform [b+1] shape. 1-deep dispatch pipeline:
-    # block i's motion is fetched and saved while the card works on i+1.
+        # --- global path solve (tiny) + adaptive render displacement bound.
+        # The path goes to the device once; the sweeps below slice it there.
+        with trace.span("vstab.blocked.solve", into=sweep_s):
+            path = _solve_path(motion, cfg, dev)  # [T, GH,GW,2] or [T,2,3]
+            _, max_disp = render_bucket(path, cfg, hw)
+            path_dev = torch.from_numpy(path).to(dev)
+        log.info("path solved: T=%d, render max_disp=%d", t, max_disp)
+
+        # --- sweep 2: global auto-crop scale (elementwise over dense flow,
+        # streamed in path-blocks; no pixels touched).
+        with trace.span("vstab.blocked.scale_sweep", into=sweep_s):
+            scale = None
+            if cfg.render.crop_mode == "auto":
+                smin = resume_state.load_scale() if resume_state is not None else None
+                if smin is None:
+                    smin = 1.0
+                    for i in range(0, t, b):
+                        s = _block_scales(_pad_block(path_dev[i : i + b], b), cfg, hw)
+                        smin = min(smin, float(s[: min(b, t - i)].min()))
+                    if resume_state is not None:
+                        resume_state.save_scale(smin)
+                scale = torch.tensor(smin, dtype=torch.float32, device=dev)
+            elif cfg.render.crop_mode == "fixed":
+                scale = torch.tensor(cfg.render.fixed_crop_ratio, dtype=torch.float32, device=dev)
+
+        with trace.span("vstab.blocked.render_sweep", into=sweep_s):
+            _render_sweep(make_chunks, writer, t, path_dev, scale, max_disp, cfg, b, dev,
+                          out_dtype, copy_stream, host, hw)
+
+    wall = sum(sweep_s.values())
+    stats = {
+        "frames": t,
+        "block_len": b,
+        "max_disp": int(max_disp),
+        "wall_s": round(wall, 3),
+        "stage_s": {
+            "flow": round(sweep_s["motion_sweep"], 3),
+            "scale": round(sweep_s["solve"] + sweep_s["scale_sweep"], 3),
+            "render": round(sweep_s["render_sweep"], 3),
+        },
+        "host_s": {k: round(v, 6) for k, v in host.s.items()},
+        "pinned_bytes": host.pinned_bytes,
+        "fps_processed": round(t / max(wall, 1e-9), 2),
+        "resume_cached_blocks": cached_blocks,
+    }
+    log.info("blocked stabilize: %s", stats)
+    return stats
+
+
+def _block_log(what: str, bi: int, n_blocks: int, start: int, n: int, tb: float) -> None:
+    """One block's progress line, made only when INFO is on (it reads RSS).
+    The message starts with `what`: `chip_smoke.py` reads the RSS by it."""
+    if log.isEnabledFor(logging.INFO):
+        log.info(
+            what + " block %d/%d (frames %d..%d) %.1f fps rss %.1fGB",
+            bi + 1, n_blocks, start, start + n - 1,
+            n / max(time.perf_counter() - tb, 1e-9), _rss_gb(),
+        )
+
+
+def _motion_sweep(
+    make_chunks, t: int, params: Params, cfg: Config, b: int, dev: torch.device,
+    resume_state: Optional[_ResumeState], copy_stream, host: _Host, n_blocks: int,
+) -> Tuple[np.ndarray, Tuple[int, int], int]:
+    """Sweep 1, per-pair motion -> (motion [T-1,...], (H, W), blocks loaded
+    from the resume cache). Blocks get a 1-frame left halo (the previous
+    block's last frame) so every consecutive pair is covered; the first
+    block's halo is a duplicate of frame 0 whose pair (a frame with itself)
+    is discarded. Uniform [b+1] shape. 1-deep dispatch pipeline: block i's
+    motion is fetched and saved while the card works on i+1."""
     motions = []
     prev_last: Optional[np.ndarray] = None
     staging: Optional[_Staging] = None
@@ -527,141 +634,103 @@ def _run_blocked(
     cached_blocks = 0
     pending = None  # (fetch, n, start, bi, tb)
 
-    def _drain_motion(p):
+    def drain(p):
         fetch, n, start, bi, tb = p
-        m = np.array(fetch.result()[:n])
+        res = fetch.result()
+        with host.span("drain_copy"):
+            m = np.array(res[:n])
         if start == 0:
             m = m[1:]  # drop the duplicate (f0, f0) pair
         if resume_state is not None:
             resume_state.save_motion(start, m)
         motions.append(m)
-        log.info(
-            "motion block %d/%d (frames %d..%d) %.1f fps rss %.1fGB",
-            bi + 1, n_blocks, start, start + n - 1,
-            n / max(time.perf_counter() - tb, 1e-9), _rss_gb(),
-        )
+        _block_log("motion", bi, n_blocks, start, n, tb)
 
-    for bi, (blk, start) in enumerate(_prefetch(make_chunks())):
+    for bi, (blk, start) in enumerate(_prefetch(make_chunks(), into=host.s)):
         tb = time.perf_counter()
         n = blk.shape[0]
         if staging is None:
             hw = (blk.shape[1], blk.shape[2])
-            staging = _Staging((b + 1,) + blk.shape[1:], blk.dtype, dev)
+            staging = _Staging((b + 1,) + blk.shape[1:], blk.dtype, dev, host)
         cached = resume_state.load_motion(start) if resume_state is not None else None
         if cached is not None:
             if pending is not None:
-                _drain_motion(pending)
+                drain(pending)
                 pending = None
             motions.append(cached)
             cached_blocks += 1
             prev_last = np.copy(blk[-1])
             continue
         ext_buf = staging.buffer(bi)
-        ext_buf[0] = blk[0] if prev_last is None else prev_last
-        ext_buf[1 : 1 + n] = blk
-        if n < b:  # freeze-frame pad (zero pair motion, trimmed in the drain)
-            ext_buf[1 + n :] = blk[-1]
-        fetch = _Fetch(_block_motion(params, staging.upload(bi), cfg), copy_stream)
+        with host.span("stage_copy"):
+            ext_buf[0] = blk[0] if prev_last is None else prev_last
+            ext_buf[1 : 1 + n] = blk
+            if n < b:  # freeze-frame pad (zero pair motion, trimmed in the drain)
+                ext_buf[1 + n :] = blk[-1]
+            prev_last = np.copy(blk[-1])
+        with host.span("dispatch"):
+            fetch = _Fetch(_block_motion(params, staging.upload(bi), cfg), copy_stream, host)
         if pending is not None:
-            _drain_motion(pending)
+            drain(pending)
         pending = (fetch, n, start, bi, tb)
-        prev_last = np.copy(blk[-1])
     if pending is not None:
-        _drain_motion(pending)
+        drain(pending)
     motion = np.concatenate(motions, axis=0)
-    del motions, staging
     if motion.shape[0] != t - 1:
         raise RuntimeError(f"motion sweep covered {motion.shape[0]} pairs of a {t}-frame clip")
     if cached_blocks:
         log.info("motion sweep: %d/%d blocks loaded from resume cache",
                  cached_blocks, n_blocks)
-    t_flow = time.perf_counter()
+    return motion, hw, cached_blocks
 
-    # --- global path solve (tiny) + adaptive render displacement bound. The
-    # path goes to the device once; the sweeps below slice it there.
-    path = _solve_path(motion, cfg, dev)  # [T, GH,GW,2] or [T,2,3]
-    _, max_disp = render_bucket(path, cfg, hw)
-    path_dev = torch.from_numpy(path).to(dev)
-    log.info("path solved: T=%d, render max_disp=%d", t, max_disp)
 
-    # --- sweep 2: global auto-crop scale (elementwise over dense flow,
-    # streamed in path-blocks; no pixels touched).
-    scale = None
-    if cfg.render.crop_mode == "auto":
-        smin = resume_state.load_scale() if resume_state is not None else None
-        if smin is None:
-            smin = 1.0
-            for i in range(0, t, b):
-                s = _block_scales(_pad_block(path_dev[i : i + b], b), cfg, hw)
-                smin = min(smin, float(s[: min(b, t - i)].min()))
-            if resume_state is not None:
-                resume_state.save_scale(smin)
-        scale = torch.tensor(smin, dtype=torch.float32, device=dev)
-    elif cfg.render.crop_mode == "fixed":
-        scale = torch.tensor(cfg.render.fixed_crop_ratio, dtype=torch.float32, device=dev)
-    t_scale = time.perf_counter()
-
-    # --- sweep 3: render + stream out. 1-deep dispatch pipeline: fetch and
-    # write block i while the card renders block i+1.
+def _render_sweep(
+    make_chunks, writer, t: int, path_dev: torch.Tensor, scale, max_disp: int, cfg: Config,
+    b: int, dev: torch.device, out_dtype: str, copy_stream, host: _Host, hw: Tuple[int, int],
+) -> None:
+    """Sweep 3, render + stream out. 1-deep dispatch pipeline: fetch and
+    write block i while the card renders block i+1."""
     to_u8 = out_dtype == "uint8"
     px = hw[0] * hw[1]
     rb = min(b, max(1, _RENDER_PX_FRAMES_BUDGET // px))
     n_rblocks = -(-t // rb)
 
-    def _rechunk(gen: Iterator) -> Iterator:
+    def rechunk(gen: Iterator) -> Iterator:
         for blk, start in gen:
             for j in range(0, blk.shape[0], rb):
                 yield blk[j : j + rb], start + j
 
+    def drain(p):
+        fetch, start = p
+        res = fetch.result()
+        with host.span("drain_copy"):
+            writer(res, start)
+
     staging = None
     pending = None  # (fetch, start)
-
-    def _drain(p):
-        fetch, start = p
-        writer(fetch.result(), start)
-
-    for bi, (blk, start) in enumerate(_prefetch(_rechunk(make_chunks()))):
+    for bi, (blk, start) in enumerate(_prefetch(rechunk(make_chunks()), into=host.s)):
         tb = time.perf_counter()
         n = blk.shape[0]
         if staging is None:
-            staging = _Staging((rb,) + blk.shape[1:], blk.dtype, dev)
+            staging = _Staging((rb,) + blk.shape[1:], blk.dtype, dev, host)
         frame_buf = staging.buffer(bi)
-        frame_buf[:n] = blk
-        if n < rb:
-            frame_buf[n:] = blk[-1]
-        out_dev = _block_render(
-            staging.upload(bi), _pad_block(path_dev[start : start + n], rb), scale, cfg,
-            max_disp=max_disp, to_uint8=to_u8,
-        )
-        fetch = _Fetch(out_dev[:n], copy_stream)
-        del out_dev
+        with host.span("stage_copy"):
+            frame_buf[:n] = blk
+            if n < rb:
+                frame_buf[n:] = blk[-1]
+        with host.span("dispatch"):
+            out_dev = _block_render(
+                staging.upload(bi), _pad_block(path_dev[start : start + n], rb), scale, cfg,
+                max_disp=max_disp, to_uint8=to_u8,
+            )
+            fetch = _Fetch(out_dev[:n], copy_stream, host)
+            del out_dev
         if pending is not None:
-            _drain(pending)
+            drain(pending)
         pending = (fetch, start)
-        log.info(
-            "render block %d/%d (frames %d..%d) %.1f fps rss %.1fGB",
-            bi + 1, n_rblocks, start, start + n - 1,
-            n / max(time.perf_counter() - tb, 1e-9), _rss_gb(),
-        )
+        _block_log("render", bi, n_rblocks, start, n, tb)
     if pending is not None:
-        _drain(pending)
-    t_render = time.perf_counter()
-
-    stats = {
-        "frames": t,
-        "block_len": b,
-        "max_disp": int(max_disp),
-        "wall_s": round(t_render - t0, 3),
-        "stage_s": {
-            "flow": round(t_flow - t0, 3),
-            "scale": round(t_scale - t_flow, 3),
-            "render": round(t_render - t_scale, 3),
-        },
-        "fps_processed": round(t / max(t_render - t0, 1e-9), 2),
-        "resume_cached_blocks": cached_blocks,
-    }
-    log.info("blocked stabilize: %s", stats)
-    return stats
+        drain(pending)
 
 
 __all__ = ["stabilize_blocked", "stabilize_video_blocked"]

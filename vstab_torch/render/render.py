@@ -25,6 +25,7 @@ from vstab_torch.core.config import RenderConfig
 from vstab_torch.core.precision import einsum_f32
 from vstab_torch.core.types import apply_affine
 from vstab_torch.kernels import twopass_validity, warp_twopass
+from vstab_torch.utils import trace
 
 log = logging.getLogger("vstab_torch.render")
 
@@ -173,22 +174,23 @@ def render_stabilized(
     residual_disp_bound / pick_max_disp."""
     t, h, w, c = frames.shape
     d = cfg.max_residual_disp if max_disp is None else max_disp
-    warped = warp_twopass(frames, flow, max_disp=d)
-    mask = twopass_validity((h, w), flow, d)[..., None]
-    if cfg.crop_mode == "none":
-        return warped * mask + cfg.border_value * (1.0 - mask)
-    if scale is None:
-        if cfg.crop_mode == "fixed":
-            scale = cfg.fixed_crop_ratio
-        elif cfg.crop_mode == "auto":
-            scale = _auto_scale(flow)
-        else:
-            raise ValueError(f"unknown crop_mode: {cfg.crop_mode}")
-    scale = torch.as_tensor(scale, dtype=torch.float32, device=frames.device)
-    out = zoom_resample(warped, scale)
-    maskz = zoom_resample(mask, scale)
-    valid = (maskz > 0.999).to(out.dtype)
-    return out * valid + cfg.border_value * (1.0 - valid)
+    with trace.span("vstab.render", device=frames.is_cuda):
+        warped = warp_twopass(frames, flow, max_disp=d)
+        mask = twopass_validity((h, w), flow, d)[..., None]
+        if cfg.crop_mode == "none":
+            return warped * mask + cfg.border_value * (1.0 - mask)
+        if scale is None:
+            if cfg.crop_mode == "fixed":
+                scale = cfg.fixed_crop_ratio
+            elif cfg.crop_mode == "auto":
+                scale = _auto_scale(flow)
+            else:
+                raise ValueError(f"unknown crop_mode: {cfg.crop_mode}")
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=frames.device)
+        out = zoom_resample(warped, scale)
+        maskz = zoom_resample(mask, scale)
+        valid = (maskz > 0.999).to(out.dtype)
+        return out * valid + cfg.border_value * (1.0 - valid)
 
 
 def render_affine(frames: torch.Tensor, transforms: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
