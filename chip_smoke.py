@@ -891,10 +891,10 @@ def _render_dispatches(t: int, block_len: int, hw) -> tuple:
     """(frames a dispatch, dispatches) of the blocked pipeline's render sweep:
     each block of `block_len` frames re-chunked to what
     `_RENDER_PX_FRAMES_BUDGET` lets through at this frame size."""
-    from vstab_torch.pipeline_blocked import _RENDER_PX_FRAMES_BUDGET
+    from vstab_torch.pipeline_blocked import _render_block_len, _render_slices
 
-    rb = min(block_len, max(1, _RENDER_PX_FRAMES_BUDGET // (hw[0] * hw[1])))
-    return min(rb, t), sum(-(-min(block_len, t - i) // rb) for i in range(0, t, block_len))
+    rb = _render_block_len(block_len, hw)
+    return min(rb, t), len(_render_slices(t, block_len, rb))
 
 
 def blocked_phase(name: str, u8: np.ndarray, params: dict, block_len: int, card: str,

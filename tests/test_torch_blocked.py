@@ -15,6 +15,7 @@ import dataclasses
 import json
 import os
 import threading
+import time
 
 import jax
 import numpy as np
@@ -93,7 +94,7 @@ def test_blocked_matches_whole_clip(clip, params, method, crop):
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
     assert set(stats) == {
         "frames", "block_len", "max_disp", "wall_s", "stage_s", "host_s", "pinned_bytes",
-        "fps_processed",
+        "prefault_bytes", "fps_processed",
         "resume_cached_blocks",
     }
     assert set(stats["stage_s"]) == {"flow", "scale", "render"}
@@ -313,6 +314,147 @@ def test_prefetch_passes_items_and_exceptions_on_and_stops_early():
             th.join(timeout=5)
             assert not th.is_alive()
     assert len(produced) <= 5
+
+
+# --- faulting in the output ---------------------------------------------------
+
+
+def _vstab_threads():
+    return [th for th in threading.enumerate() if th.name.startswith("vstab-")]
+
+
+def _no_vstab_thread_left():
+    """No prefault thread is alive on return (they are joined); a decode
+    thread stops within its 0.1 s poll once its generator is closed."""
+    assert not [th for th in _vstab_threads() if th.name.startswith("vstab-prefault")]
+    for th in _vstab_threads():
+        th.join(timeout=5)
+        assert not th.is_alive(), th.name
+
+
+@pytest.mark.parametrize("rb", [None, 3])
+def test_prefault_slices_are_the_render_sweeps_drains(clip, params, monkeypatch, rb):
+    """The helper's slices are the frame ranges the render sweep drains, in
+    order, and cover the clip: whole blocks of 8 (13 + 8 with block_len 13),
+    and 3-frame dispatches cut from each block under a tiny pixel budget."""
+    if rb is not None:
+        monkeypatch.setattr(pb, "_RENDER_PX_FRAMES_BUDGET", rb * clip.shape[1] * clip.shape[2])
+    t = clip.shape[0]
+    for b in (8, 13):
+        drained = []
+        pb._run_blocked(lambda: ((clip[i : i + b], i) for i in range(0, t, b)),
+                        lambda blk, start: drained.append((start, start + blk.shape[0])),
+                        t, params[1], _cfg(tcfg, crop="fixed"), b, torch.device("cpu"))
+        slices = pb._Prefault(np.empty(clip.shape, np.float32), b).slices
+        assert slices == drained
+        assert [s[0] for s in slices] == [0] + [s[1] for s in slices[:-1]] and slices[-1][1] == t
+        assert max(z - a for a, z in slices) == (rb or b)
+
+
+def test_the_drain_writes_a_slice_only_once_it_is_resident(clip, params, monkeypatch):
+    """A helper slower than the motion sweep: each drained block still finds
+    its slice's event set, and the drain's wait is the span `out_wait`."""
+    real = pb._Prefault._touch
+
+    def slow(self, lo, hi):
+        time.sleep(0.3)
+        real(self, lo, hi)
+
+    monkeypatch.setattr(pb._Prefault, "_touch", slow)
+    out = np.empty(clip.shape, np.float32)
+    seen = []
+
+    def writer(blk, start):
+        seen.append((start, pf._ready[start].is_set()))
+        out[start : start + blk.shape[0]] = blk
+
+    with pb._Prefault(out, 8) as pf:
+        stats = pb._run_blocked(lambda: ((clip[i : i + 8], i) for i in range(0, 21, 8)), writer,
+                                21, params[1], _cfg(tcfg, crop="fixed"), 8, torch.device("cpu"),
+                                prefault=pf)
+    assert seen == [(0, True), (8, True), (16, True)]
+    assert stats["prefault_bytes"] == out.nbytes and stats["host_s"]["out_wait"] > 0
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("offset", [0, 4, 4092])
+def test_prefault_writes_every_page_and_the_last_element(monkeypatch, threads, offset):
+    """An output whose frames, and whose start, do not fall on page
+    boundaries: after the helper, every OS page it spans holds a written 0,
+    its last element too, and each slice's event is set."""
+    monkeypatch.setattr(pb, "_PREFAULT_THREADS", threads)
+    shape = (23, 37, 53, 3)
+    n = int(np.prod(shape))
+    buf = np.full(n + 2048, np.nan, np.float32)
+    out = buf.view(np.uint8)[offset : offset + 4 * n].view(np.float32).reshape(shape)
+    with pb._Prefault(out, 8) as pf:
+        for start, _ in pf.slices:
+            pf.wait(start)
+    assert all(pf._ready[start].is_set() for start, _ in pf.slices)
+    assert [start for start, _ in pf.slices] == [0, 8, 16] and pf.nbytes == out.nbytes
+    page, addr = os.sysconf("SC_PAGE_SIZE"), out.ctypes.data
+    written = np.flatnonzero(out.reshape(-1) == 0)
+    spanned = range(addr // page, (addr + out.nbytes - 1) // page + 1)
+    assert set(((addr + 4 * written) // page).tolist()) == set(spanned)
+    assert out.reshape(-1)[-1] == 0
+    assert np.isnan(out).mean() > 0.99  # a page's worth of elements apart, not a fill
+    _no_vstab_thread_left()
+
+
+@pytest.mark.parametrize("caller_waits", [True, False])
+def test_prefault_error_reaches_the_caller(monkeypatch, caller_waits):
+    """A fault in the helper wakes a drain waiting on any slice and is raised
+    there; a caller that never waits gets it on leaving the block."""
+    real = pb._Prefault._touch
+
+    def touch(self, lo, hi):
+        if lo >= self._flat.size // 2:
+            raise MemoryError("cannot fault in")
+        real(self, lo, hi)
+
+    monkeypatch.setattr(pb._Prefault, "_touch", touch)
+    out = np.empty((21, 48, 64, 3), np.float32)
+    with pytest.raises(MemoryError, match="cannot fault in"):
+        with pb._Prefault(out, 8) as pf:
+            if caller_waits:
+                for start, _ in pf.slices:
+                    pf.wait(start)
+    _no_vstab_thread_left()
+
+
+def test_a_call_that_raises_leaves_no_thread(clip, params, monkeypatch):
+    """The render sweep fails mid-clip: the error is the caller's, and no
+    prefault or decode thread outlives the call."""
+
+    def render(*a, **kw):
+        raise RuntimeError("render failed")
+
+    monkeypatch.setattr(pb, "_block_render", render)
+    with pytest.raises(RuntimeError, match="render failed"):
+        vstab_torch.stabilize_blocked(clip, params[1], _cfg(tcfg, crop="fixed"), block_len=8,
+                                      device="cpu")
+    _no_vstab_thread_left()
+
+
+def test_stats_count_the_prefaulted_output(tmp_path, clip, params, caplog):
+    """`stabilize_blocked` faults in its whole output (`prefault_bytes` is
+    its size, waits in `host_s.out_wait`); the file path owns no output
+    array and faults in nothing."""
+    pytest.importorskip("cv2")
+    from vstab_torch.io.video import write_video
+
+    caplog.set_level("INFO", logger="vstab_torch.blocked")
+    cfg = _cfg(tcfg, crop="fixed")
+    out = vstab_torch.stabilize_blocked(clip, params[1], cfg, block_len=8, device="cpu")
+    (rec,) = [r for r in caplog.records if str(r.msg).startswith("blocked stabilize:")]
+    stats = rec.args if isinstance(rec.args, dict) else rec.args[0]
+    assert stats["prefault_bytes"] == out.nbytes == 21 * 48 * 64 * 3 * 4
+    assert stats["host_s"]["out_wait"] >= 0
+    src = str(tmp_path / "in.mp4")
+    write_video(src, clip, fps=24.0)
+    video = vstab_torch.stabilize_video_blocked(src, str(tmp_path / "out.mp4"), params[1], cfg,
+                                                block_len=8, device="cpu")
+    assert video["prefault_bytes"] == 0 and video["host_s"]["out_wait"] == 0.0
 
 
 # --- file to file --------------------------------------------------------------

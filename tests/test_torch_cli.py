@@ -98,11 +98,12 @@ def test_stabilize_auto_blocked_switch(tmp_path, cfg_json, src_video):
     rec = json.loads(r.stdout.strip().splitlines()[-1])
     assert set(rec) == {
         "frames", "block_len", "max_disp", "wall_s", "stage_s", "host_s", "pinned_bytes",
-        "fps_processed",
+        "prefault_bytes", "fps_processed",
         "resume_cached_blocks", "input", "output", "fps",
     }
     assert rec["frames"] == 40 and rec["block_len"] == 8
     assert rec["stage_s"]["flow"] > 0 and rec["resume_cached_blocks"] == 0
+    assert rec["prefault_bytes"] == 0  # the video writer owns no output array
     assert read_video(dst)[0].shape[0] == 40
     assert not os.path.exists(dst + ".resume")
     # blocked runs log per-block progress

@@ -1206,5 +1206,5 @@ def test_blocked_pinned_bytes_are_its_buffers(cuda):
     want = 2 * 9 * frame + 3 * motion.numel() * 4 + 2 * 8 * frame + 21 * frame * 4
     assert stats["pinned_bytes"] == want
     assert set(stats["host_s"]) == {"prefetch_wait", "staging_wait", "stage_copy", "dispatch",
-                                    "pinned_alloc", "fetch_wait", "drain_copy"}
+                                    "pinned_alloc", "fetch_wait", "drain_copy", "out_wait"}
     assert stats["host_s"]["pinned_alloc"] > 0 and stats["host_s"]["dispatch"] > 0

@@ -29,7 +29,7 @@ _TINY = dict(
 )
 _STAGES = ("vstab.flow", "vstab.smooth", "vstab.bucket", "vstab.warp_field", "vstab.render")
 _HOST_KEYS = {"prefetch_wait", "staging_wait", "stage_copy", "dispatch", "pinned_alloc",
-              "fetch_wait", "drain_copy"}
+              "fetch_wait", "drain_copy", "out_wait"}
 
 
 @pytest.fixture(scope="module")

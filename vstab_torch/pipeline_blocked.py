@@ -37,8 +37,15 @@ the spans `vstab.blocked.motion_sweep`, `.solve` + `.scale_sweep` and
 `.render_sweep`), `host_s` (the self seconds of the per-block host spans:
 waiting for the prefetch thread, for a staging buffer or for a fetch;
 copying into a staging buffer or out of a fetch; dispatching a block;
-allocating pinned memory) and `pinned_bytes` (the pinned host memory the call
-asked for). They are timed whether or not `vstab_torch.utils.trace` records.
+allocating pinned memory; waiting for the output's pages) and `pinned_bytes`
+(the pinned host memory the call asked for). They are timed whether or not
+`vstab_torch.utils.trace` records.
+
+A fresh host output is mapped but not resident: the first write to each page
+faults. `stabilize_blocked` faults its output in on a few threads while the
+motion sweep runs (`_Prefault`), render slice by render slice, so the render
+sweep's drain copies into resident memory; the stats' `prefault_bytes` is the
+output's size then, 0 where the writer owns no array.
 
 Fault tolerance: `stabilize_video_blocked` keeps a `<out>.resume/` directory
 with per-block motion results (the expensive sweep) and the solved scale; a
@@ -52,6 +59,7 @@ host memory. Both run on the CUDA device unless given `device="cpu"`.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import logging
@@ -177,7 +185,7 @@ def _pad_block(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 _HOST_SPANS = ("prefetch_wait", "staging_wait", "stage_copy", "dispatch", "pinned_alloc",
-               "fetch_wait", "drain_copy")
+               "fetch_wait", "drain_copy", "out_wait")
 
 
 class _Host:
@@ -461,7 +469,8 @@ def stabilize_blocked(
     def writer(blk: np.ndarray, start: int) -> None:
         out[start : start + blk.shape[0]] = blk
 
-    _run_blocked(chunks, writer, t, _on(params, dev), cfg, b, dev)
+    with _Prefault(out, b) as prefault:
+        _run_blocked(chunks, writer, t, _on(params, dev), cfg, b, dev, prefault=prefault)
     return out
 
 
@@ -533,6 +542,110 @@ def stabilize_video_blocked(
 _RENDER_PX_FRAMES_BUDGET = 64 * 2_100_000
 
 
+def _render_block_len(b: int, hw: Tuple[int, int]) -> int:
+    """Frames a render dispatch: `b`, cut to `_RENDER_PX_FRAMES_BUDGET`."""
+    return min(b, max(1, _RENDER_PX_FRAMES_BUDGET // (hw[0] * hw[1])))
+
+
+def _render_slices(t: int, b: int, rb: int) -> list:
+    """The frame ranges [start, stop) the render sweep dispatches and drains,
+    in order: each `b`-frame block cut into `rb`-frame dispatches."""
+    return [(j, min(j + rb, i + b, t)) for i in range(0, t, b) for j in range(i, min(i + b, t), rb)]
+
+
+# Threads that fault in a fresh output: a few, and one core fewer than the
+# host has, so the thread that dispatches to the card keeps one to itself.
+_PREFAULT_THREADS = max(1, min(4, (os.cpu_count() or 1) - 1))
+
+
+class _Prefault:
+    """Faults in the pages of a fresh host output `out` [T,...] on
+    `_PREFAULT_THREADS` threads, ahead of the render sweep's drain.
+
+    `np.empty` of a clip's output (6.4 GB at 256 frames of 1080p f32) maps
+    pages that the first write faults in; without this, the writer's copy of
+    each fetched block paid those faults while the card waited for the next
+    block: a pinned 64-frame 1080p f32 block copies in 0.62 to 0.64 s into a
+    fresh array and 0.17 to 0.18 s into a touched one, and this helper faults
+    in the whole 6.4 GB in 1.03 to 1.17 s on 4 threads, inside the motion
+    sweep's ~2.8 s (`perf_records/prefault_ab.py` on the host of an NVIDIA
+    H100 80GB HBM3, 8 cores). Here each render slice (`_render_slices`, in drain order, each
+    split across the threads) gets one element written 0 in every OS page it
+    spans, its first and its last; `wait(start)` returns once the slice
+    starting at frame `start` is resident. The drain's copy then overwrites
+    every element. A strided numpy write releases the GIL, so the motion
+    sweep's dispatching thread runs on meanwhile.
+
+    A context manager: the threads start on entry; on exit they are stopped,
+    joined, and the first exception one of them raised is raised."""
+
+    def __init__(self, out: np.ndarray, b: int):
+        self.nbytes = out.nbytes
+        self.slices = _render_slices(out.shape[0], b, _render_block_len(b, out.shape[1:3]))
+        self._flat = out.reshape(-1)  # a view: `out` is a fresh C-contiguous array
+        self._addr, self._page = self._flat.ctypes.data, os.sysconf("SC_PAGE_SIZE")
+        frame = self._flat.size // max(out.shape[0], 1)
+        n = _PREFAULT_THREADS
+        parts = []  # (slice start, first element, end element), slices in drain order
+        for start, stop in self.slices:
+            lo, hi = start * frame, stop * frame
+            cuts = [lo + (hi - lo) * k // n for k in range(n + 1)]
+            parts += [(start, a, z) for a, z in zip(cuts, cuts[1:]) if z > a]
+        self._left = collections.Counter(start for start, _, _ in parts)
+        self._todo = iter(parts)
+        self._ready = {start: threading.Event() for start, _ in self.slices}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._err: list = []
+        self._threads = [threading.Thread(target=self._run, daemon=True, name=f"vstab-prefault-{i}")
+                         for i in range(n)]
+
+    def __enter__(self) -> "_Prefault":
+        for th in self._threads:
+            th.start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._stop.set()
+        for th in self._threads:
+            th.join()
+        if self._err and exc_type is None:
+            raise self._err[0]
+
+    def wait(self, start: int) -> None:
+        """Block until the slice that starts at frame `start` is resident."""
+        self._ready[start].wait()
+        if self._err:
+            raise self._err[0]
+
+    def _touch(self, lo: int, hi: int) -> None:
+        """Write 0 to the elements [lo, hi) that start an OS page, and to the first and the last."""
+        flat, size = self._flat, self._flat.itemsize
+        to_page = -(self._addr + lo * size) % self._page  # bytes from element lo to a page's start
+        flat[lo + to_page // size : hi : self._page // size] = 0
+        flat[lo] = flat[hi - 1] = 0
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                with self._lock:
+                    part = next(self._todo, None)
+                if part is None:
+                    return
+                start, lo, hi = part
+                self._touch(lo, hi)
+                with self._lock:
+                    self._left[start] -= 1
+                    done = self._left[start] == 0
+                if done:
+                    self._ready[start].set()
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            self._err.append(e)
+            self._stop.set()
+            for ev in self._ready.values():
+                ev.set()
+
+
 # ---------------------------------------------------------------------------
 # The three sweeps
 # ---------------------------------------------------------------------------
@@ -542,11 +655,12 @@ _RENDER_PX_FRAMES_BUDGET = 64 * 2_100_000
 def _run_blocked(
     make_chunks, writer, t: int, params: Params, cfg: Config, b: int,
     dev: torch.device, resume_state: Optional[_ResumeState] = None,
-    out_dtype: str = "float32",
+    out_dtype: str = "float32", prefault: Optional[_Prefault] = None,
 ) -> dict:
     """Drive the sweeps. `make_chunks()` returns a fresh iterator of
     ([<=b,H,W,3] uint8-or-f32, start) host blocks covering frames [0, t);
-    `params` are on `dev`."""
+    `params` are on `dev`. With `prefault`, the render sweep writes a slice
+    only once `prefault` has made it resident."""
     pin_full_f32()
     sweep_s: Dict[str, float] = {}
     host = _Host()
@@ -584,7 +698,7 @@ def _run_blocked(
 
         with trace.span("vstab.blocked.render_sweep", into=sweep_s):
             _render_sweep(make_chunks, writer, t, path_dev, scale, max_disp, cfg, b, dev,
-                          out_dtype, copy_stream, host, hw)
+                          out_dtype, copy_stream, host, hw, prefault)
 
     wall = sum(sweep_s.values())
     stats = {
@@ -599,6 +713,7 @@ def _run_blocked(
         },
         "host_s": {k: round(v, 6) for k, v in host.s.items()},
         "pinned_bytes": host.pinned_bytes,
+        "prefault_bytes": prefault.nbytes if prefault is not None else 0,
         "fps_processed": round(t / max(wall, 1e-9), 2),
         "resume_cached_blocks": cached_blocks,
     }
@@ -687,12 +802,12 @@ def _motion_sweep(
 def _render_sweep(
     make_chunks, writer, t: int, path_dev: torch.Tensor, scale, max_disp: int, cfg: Config,
     b: int, dev: torch.device, out_dtype: str, copy_stream, host: _Host, hw: Tuple[int, int],
+    prefault: Optional[_Prefault],
 ) -> None:
     """Sweep 3, render + stream out. 1-deep dispatch pipeline: fetch and
     write block i while the card renders block i+1."""
     to_u8 = out_dtype == "uint8"
-    px = hw[0] * hw[1]
-    rb = min(b, max(1, _RENDER_PX_FRAMES_BUDGET // px))
+    rb = _render_block_len(b, hw)
     n_rblocks = -(-t // rb)
 
     def rechunk(gen: Iterator) -> Iterator:
@@ -703,6 +818,9 @@ def _render_sweep(
     def drain(p):
         fetch, start = p
         res = fetch.result()
+        if prefault is not None:
+            with host.span("out_wait"):
+                prefault.wait(start)
         with host.span("drain_copy"):
             writer(res, start)
 
