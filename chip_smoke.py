@@ -6,11 +6,12 @@
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
 and the repository's `ckpts/`. It does the following (steps 20 and 21 run
 after step 10; step 4 after step 19, once every path has shown its shapes,
-dtypes and buckets; steps 22 and 12 after it):
+dtypes and buckets; steps 22 and 12 after it; step 25 after step 8):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
    CUDA versions; exits non-zero when torch sees no CUDA device;
-2. builds the hand-written kernels (four forward, two backward) from `vstab_torch/kernels/csrc/`
+2. builds the hand-written kernels (four forward, two backward, and RAFT's
+   correlation lookup) from `vstab_torch/kernels/csrc/`
    (one `nvcc` per source, in parallel) and prints the build time;
 3. runs the main path: `default_params` reads `ckpts/flow_086000.msgpack`
    with the port's own reader, then `stabilize` runs on the 48x720x1280
@@ -175,11 +176,24 @@ dtypes and buckets; steps 22 and 12 after it):
    and the phase's time, with the card's name and power limit. Step 4 holds
    the kernels at its shapes and its launch counts (5 cost volumes and
    4 + 4 warps a step forward, 5 and 4 backward).
+25. RAFT (after step 8): `stabilize` with `Config(flow=RaftConfig())`
+   (weights drawn from the configuration's seed; no checkpoint) on the main
+   clip, launch counters zeroed just before and read just after: 20
+   correlation lookups a chunk of pairs (120 for six chunks of 8), no
+   cost volume or feature warp, `vwarp` once and `hwarp` 3 or 4 times for
+   the one render dispatch at its bucket; frames/s, stage times and peak
+   memory of timed runs. Then the lookup kernel against its plain version at
+   that path's shape (8 pairs at 90x160, levels down to 11x20, flow of a
+   few pixels) in bfloat16 and float32, within 2e-4 (and one bf16 ulp),
+   timed beside its plain version, with its bound from its inputs (bytes
+   over the memory rate); its row, with the RAFT path's launches, joins the
+   `kernels` line.
 
 Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
 launched all four forward kernels; steps 13, 18 and 24 do the same for the
-two kernels inside the network and their backward kernels.
+two kernels inside the network and their backward kernels; step 25 holds
+the RAFT path to its own counts.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -278,9 +292,12 @@ def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def _check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def _check(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = None) -> float:
+    """got against want within _TOL of want's dtype, or within `atol` and
+    that dtype's rtol."""
     torch.cuda.synchronize()
-    rtol, atol = _TOL[want.dtype]
+    rtol, tol = _TOL[want.dtype]
+    atol = tol if atol is None else atol
     g, w = got.float(), want.float()
     err = (g - w).abs()
     bad = int((err > atol + rtol * w.abs()).sum())
@@ -1537,9 +1554,98 @@ def backward_kernel_phase(hbm: float):
 
 
 def _all_launches() -> dict:
-    from vstab_torch.kernels import KERNELS, KERNELS_BWD
+    from vstab_torch.kernels import KERNELS, KERNELS_BWD, KERNELS_RAFT
 
-    return {k: v.launches for k, v in {**KERNELS, **KERNELS_BWD}.items()}
+    return {k: v.launches for k, v in {**KERNELS, **KERNELS_BWD, **KERNELS_RAFT}.items()}
+
+
+# RAFT's lookup against its plain version: the same taps, weights from
+# coordinates that the plain version maps to [-1, 1] and back (~1e-5 px at
+# 160 columns), so samples of a unit-scale level differ by up to ~1e-4
+# (tests/test_torch_cuda.py); in bfloat16 one ulp more.
+_LOOKUP_ATOL = 2e-4
+
+
+def raft_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
+    """RAFT as the flow network (step 25). `stabilize` with
+    `Config(flow=RaftConfig())`, weights drawn from the configuration's seed,
+    on the main clip with every launch counter zeroed just before and read
+    just after: 20 lookups a chunk of pairs (six chunks of 8 at 720p), no
+    PWC-Net kernel, and the render warps' launches of one dispatch at its
+    bucket; then timed runs (frames/s, stage times, peak memory). Then the
+    lookup kernel against its plain version at that path's shape (8 pairs at
+    90x160, levels down to 11x20, flow of a few pixels), in bfloat16 (the
+    path's) and float32, timed beside the plain version, with its bound:
+    bytes (`h100bench/counts/raft.py`, from its inputs) over the memory rate.
+    Returns {"launches": the path's, "row": the lookup's bfloat16 row}."""
+    import vstab_torch
+    from h100bench.counts.raft import lookup_bytes
+    from vstab_torch import bench
+    from vstab_torch.core.config import RaftConfig
+    from vstab_torch.flow import raft
+    from vstab_torch.kernels import corr_lookup, corr_lookup_plain, reset_launches
+    from vstab_torch.kernels._build import DTYPE_CODES
+    from vstab_torch.pipeline import default_pair_chunk
+
+    cfg = vstab_torch.Config(flow=RaftConfig())
+    params = vstab_torch.default_params(cfg)
+    t, h, w, _ = frames.shape
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = vstab_torch.stabilize(frames, params, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: n for k, n in _all_launches().items() if not k.endswith("_bwd")}
+    _check_frames("raft", out, frames.shape)
+    del out
+    res = bench.measure(frames, params, cfg, iters=3, stages=True)
+    d = res["max_disp"]
+    pairs = raft.pair_chunk(h, w, cfg.flow, default_pair_chunk(h, w))
+    chunks = -(-(t - 1) // pairs)
+    want = {"cost_volume": 0, "bilinear_warp": 0, "vwarp": 1, "hwarp": 1 + (2 if d <= 63 else 3),
+            "corr_lookup": cfg.flow.iters * chunks}
+    _say(f"raft: first run {first_s:.2f} s, launches {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"raft: launches {launches}, not {want} ({chunks} chunks of {pairs} pairs, "
+                             f"{cfg.flow.iters} iterations, one render dispatch at the bucket {d})")
+    _say("raft: " + json.dumps({**res, "chunks": chunks, "pairs_a_chunk": pairs, "card": card}))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h8, w8 = -(-h // 8), -(-w // 8)
+    level = torch.randn((pairs * h8 * w8, 1, h8, w8), generator=g, device="cuda")
+    pyr = [level]
+    for _ in range(cfg.flow.corr_levels - 1):
+        pyr.append(F.avg_pool2d(pyr[-1], 2, stride=2))
+    pyr = [p[:, 0].contiguous() for p in pyr]
+    del level
+    yy, xx = torch.meshgrid(torch.arange(h8, device="cuda"), torch.arange(w8, device="cuda"), indexing="ij")
+    coords = torch.stack([xx, yy], dim=-1).float()[None].expand(pairs, h8, w8, 2)
+    coords = (coords + 3.0 * torch.randn(coords.shape, generator=g, device="cuda")).contiguous()
+    r = cfg.flow.corr_radius
+    plain = corr_lookup_plain(pyr, coords, r, torch.float32)
+    sizes = [s for p in pyr for s in p.shape[1:]]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (pairs, h8, w8, len(pyr) * (2 * r + 1) ** 2)
+        err = _check(f"corr_lookup {shape} {_dt(dtype)}", corr_lookup(pyr, coords, r, dtype),
+                     plain.to(dtype), atol=_LOOKUP_ATOL)
+        args = (0,) * 4 + tuple(sizes) + (len(pyr), r, 0, 0, coords.numel() // 2, DTYPE_CODES[dtype], 0)
+        row = dict(
+            kernel="corr_lookup", path="raft_720p",
+            shape=list(shape) + [_dt(dtype), f"levels to {sizes[-2]}x{sizes[-1]}, r={r}"],
+            launches=want["corr_lookup"] if dtype == torch.bfloat16 else 0, max_abs_err=err,
+            ms=_time_ms(lambda: corr_lookup(pyr, coords, r, dtype)),
+            plain_ms=_time_ms(lambda: corr_lookup_plain(pyr, coords, r, dtype), iters=5),
+            bytes=lookup_bytes(args), flops=None, library_ms=None,
+        )
+        _bound(row, hbm)
+        _say(f"  kernel {json.dumps(row)}")
+        rows.append(row)
+    rows[0]["max_abs_err"] = max(x["max_abs_err"] for x in rows)
+    del pyr, plain
+    torch.cuda.empty_cache()
+    return {"launches": launches, "row": rows[0]}
 
 
 def _gradient_cross_check(params: dict, cfg, batch: dict, mode: str) -> None:
@@ -2279,6 +2385,7 @@ def main() -> int:
     paths[_MAIN], device_ms, frames_np, frames, params = main_path(card)
     paths["affine_720p"] = affine_phase(frames, params, card)
     paths["batch_720p"] = batch_phase(frames, params, card)
+    raft_run = raft_phase(frames, card, hbm)
     del frames
     torch.cuda.empty_cache()
     paths.update(sharded_phase(frames_np, params, card))
@@ -2340,6 +2447,8 @@ def main() -> int:
     bwd_rows, _ = backward_kernel_phase(hbm)
     _say(f"backward kernel checks: {time.perf_counter() - t0:.1f} s")
     rows.update(bwd_rows)
+    rows["corr_lookup"] = raft_run["row"]
+    held["raft_720p"] = raft_run["launches"]
     zeros = {k: 0 for k in _all_launches()}
     by_path = {name: {**zeros, **p["launches"]} for name, p in paths.items()}
     by_path.update({name: {**zeros, **launches} for name, launches in held.items()})
@@ -2353,10 +2462,14 @@ def main() -> int:
         # XLA formulations named here.
         "cost_volume_bwd": ("vstab_torch/kernels/csrc/cost_volume.cu", "vstab/kernels/cost_volume.py:52"),
         "bilinear_warp_bwd": ("vstab_torch/kernels/csrc/warp.cu", "vstab/kernels/warp.py:71"),
+        # RAFT is the port's own: no TPU kernel, no JAX formulation behind it.
+        "corr_lookup": ("vstab_torch/kernels/csrc/corr_lookup.cu", None),
     }
     # The forward kernels report the whole-clip path's launches, the backward
-    # kernels the training run's (no serving path launches them).
+    # kernels the training run's (no serving path launches them), the lookup
+    # the RAFT path's.
     main_of = {k: "train_192x256" if k.endswith("_bwd") else _MAIN for k in meta}
+    main_of["corr_lookup"] = "raft_720p"
     kernels = [
         {
             "name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

@@ -1208,3 +1208,178 @@ def test_blocked_pinned_bytes_are_its_buffers(cuda):
     assert set(stats["host_s"]) == {"prefetch_wait", "staging_wait", "stage_copy", "dispatch",
                                     "pinned_alloc", "fetch_wait", "drain_copy", "out_wait"}
     assert stats["host_s"]["pinned_alloc"] > 0 and stats["host_s"]["dispatch"] > 0
+
+
+# RAFT's correlation lookup (`csrc/corr_lookup.cu`) against its plain
+# `grid_sample` version: the same four taps, and weights from coordinates
+# that differ by a few float32 ulps (the plain version maps each coordinate to
+# [-1, 1] and back: ~1e-5 px at 160 columns), so samples of a unit-scale
+# random level differ by up to ~1e-4 (7.7e-5 seen at the 720p chunk): 2e-4
+# abs, plus one bf16 ulp in bfloat16 (both round the f32 sum once).
+LOOKUP_ATOL = 2e-4
+def _corr_pyramid(cuda, n, h8, w8, levels=4, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn((n * h8 * w8, 1, h8, w8), generator=g, device=cuda)
+    pyr = [base]
+    for _ in range(levels - 1):
+        pyr.append(torch.nn.functional.avg_pool2d(pyr[-1], 2, stride=2))
+    return [p[:, 0].contiguous() for p in pyr]
+
+
+def _coords(cuda, n, h8, w8, spread, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h8, device=cuda), torch.arange(w8, device=cuda), indexing="ij")
+    base = torch.stack([xx, yy], dim=-1).float()[None].expand(n, h8, w8, 2)
+    return (base + spread * torch.randn((n, h8, w8, 2), generator=g, device=cuda)).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_lookup_matches_plain_at_the_720p_chunk(cuda, dtype):
+    """8 pairs at 90x160, levels 90x160 / 45x80 / 22x40 / 11x20, flow of a
+    few pixels at 1/8 (the 720p cell's shape), radius 4."""
+    from vstab_torch.kernels import KERNELS_RAFT, corr_lookup, corr_lookup_plain
+
+    pyr = _corr_pyramid(cuda, 8, 90, 160)
+    assert [tuple(p.shape[1:]) for p in pyr] == [(90, 160), (45, 80), (22, 40), (11, 20)]
+    coords = _coords(cuda, 8, 90, 160, 3.0)
+    reset_launches()
+    got = corr_lookup(pyr, coords, 4, dtype)
+    assert KERNELS_RAFT["corr_lookup"].launches == 1
+    assert got.shape == (8, 90, 160, 324) and got.dtype == dtype
+    want = corr_lookup_plain(pyr, coords, 4, torch.float32)
+    rtol = 2**-7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=rtol, atol=LOOKUP_ATOL)
+
+
+@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 4), (1, 2), (4, 1)])
+@pytest.mark.parametrize("where", ["left", "right", "top", "bottom", "far", "last_row_and_column"])
+def test_corr_lookup_past_every_border_matches_plain(cuda, radius, levels, where):
+    """Coordinates pushed past each border (samples partly and wholly
+    outside read 0), far beyond it, and on the last row and column."""
+    from vstab_torch.kernels import corr_lookup, corr_lookup_plain
+
+    n, h8, w8 = 2, 13, 21
+    pyr = _corr_pyramid(cuda, n, h8, w8, levels)
+    coords = _coords(cuda, n, h8, w8, 0.5).clone()
+    shift = {"left": (-w8 / 2 - 3.3, 0.0), "right": (w8 / 2 + 2.7, 0.0), "top": (0.0, -h8 / 2 - 4.1),
+             "bottom": (0.0, h8 / 2 + 3.6), "far": (1e6, -3e7), "last_row_and_column": (0.0, 0.0)}[where]
+    coords[..., 0] += shift[0]
+    coords[..., 1] += shift[1]
+    if where == "last_row_and_column":
+        coords[:, -1, :, 1] = h8 - 1.0
+        coords[:, :, -1, 0] = w8 - 1.0
+    got = corr_lookup(pyr, coords, radius, torch.float32)
+    want = corr_lookup_plain(pyr, coords, radius, torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=LOOKUP_ATOL)
+    if where == "far":
+        assert float(got.abs().max()) == 0.0
+
+
+def test_corr_lookup_refuses_what_it_cannot_take(cuda):
+    from vstab_torch.kernels import corr_lookup
+
+    pyr = _corr_pyramid(cuda, 1, 8, 12)  # four levels down to 1x1
+    coords = _coords(cuda, 1, 8, 12, 1.0)
+    with pytest.raises(ValueError):
+        corr_lookup(pyr * 2, coords)  # 8 levels
+    with pytest.raises(ValueError):
+        corr_lookup(pyr, coords, radius=5)
+    with pytest.raises(TypeError):
+        corr_lookup([p.double() for p in pyr], coords.double())
+    with pytest.raises(ValueError):
+        corr_lookup(pyr, coords[:, :, :3].contiguous())  # a pixel count the levels do not have
+    with pytest.raises(ValueError):
+        corr_lookup([p.cpu() for p in pyr], coords)
+
+
+def test_raft_stabilize_on_the_card_matches_the_cpu(cuda):
+    """`stabilize` with RAFT through `clip_flow` on the card (cuBLAS, cuDNN,
+    the lookup kernel) against the same call on the CPU, in float32 with
+    TF32 off: 20 launches a chunk, flow within 1e-3 px, the same render
+    bucket and the output within 1e-3 on 99.9% of the values."""
+    import vstab_torch
+    from vstab_torch.core import config as tcfg
+    from vstab_torch.flow import raft
+    from vstab_torch.kernels import KERNELS_RAFT
+    from vstab_torch.pipeline import clip_flow
+
+    cfg = tcfg.Config(flow=tcfg.RaftConfig(compute_dtype="float32"))
+    params = raft.init_params(0, cfg.flow, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    frames = torch.rand((10, 64, 96, 3), generator=g)
+    want_flow = clip_flow(params, frames, cfg)
+    reset_launches()
+    got_flow = clip_flow({k: v.to(cuda) for k, v in params.items()}, frames.to(cuda), cfg)
+    assert KERNELS_RAFT["corr_lookup"].launches == 2 * 20  # 9 pairs: two chunks of 8
+    torch.testing.assert_close(got_flow.cpu(), want_flow, rtol=0, atol=1e-3)
+    want, _ = vstab_torch.stabilize(frames, params, cfg, device="cpu")
+    got, _ = vstab_torch.stabilize(frames, params, cfg)
+    close = ((got.cpu() - want).abs() <= 1e-3).float().mean()
+    assert float(close) >= 0.999
+
+
+# RAFT's correlation pyramid is stated in float32 with TF32 off. Held as the
+# timed path makes it: the features and the pyramid of the chunk's first
+# pair, caught at `raft.corr_pyramid` inside `estimate_flow_pairs` on a 720p
+# chunk (8 pairs, 90x160, levels to 11x20), against a float64 matmul and
+# pooling of the same features; the reading is the largest error over the
+# RMS of the float64 volume. The bound sits between the path in float32 and
+# two lower precisions, each of which the test also reads and requires to
+# fail it: the pyramid rounded to bfloat16 (both compute dtypes) and, for
+# float32 features, the product under TF32. Under the bfloat16 compute dtype
+# the features are bfloat16 values, which TF32 holds exactly: there TF32
+# changes nothing but the order of the sums, and is not a fault. Read on an
+# H100 (700 W): the path 1.6e-6 (bfloat16 features) and 2.3e-6 (float32),
+# TF32 3.7e-4, the pyramid in bfloat16 6.6e-3; the bound lies about 13
+# times from the path and from TF32.
+PYRAMID_RTOL = 3e-5
+
+
+def _pyramid_error(got, f1, f2):
+    c = f1.shape[1]
+    a = f1[0].double().flatten(1)
+    b = f2[0].double().flatten(1)
+    want = (a.T @ b / c**0.5).view(-1, 1, *f1.shape[2:])
+    err, scale = 0.0, float(want.pow(2).mean().sqrt())
+    for lvl, g in enumerate(got):
+        if lvl:
+            want = torch.nn.functional.avg_pool2d(want, 2, stride=2)
+        err = max(err, float((g.double() - want[:, 0]).abs().max()))
+    return err / scale
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_raft_corr_pyramid_is_float32_on_the_timed_path(cuda, monkeypatch, compute_dtype):
+    from vstab_torch.core.config import RaftConfig
+    from vstab_torch.flow import raft
+
+    cfg = RaftConfig(iters=1, compute_dtype=compute_dtype)
+    params = raft.prepare(raft.init_params(0, cfg, cuda), cfg)
+    real, seen = raft.corr_pyramid, []
+
+    def spy(f1, f2, levels):
+        out = real(f1, f2, levels)
+        hw = f1.shape[2] * f1.shape[3]
+        seen.append((f1[:1].clone(), f2[:1].clone(), [t[:hw].clone() for t in out]))
+        return out
+
+    monkeypatch.setattr(raft, "corr_pyramid", spy)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    frames = torch.rand((9, 720, 1280, 3), generator=g, device=cuda)
+    raft.estimate_flow_pairs(params, frames, cfg)
+    (f1, f2, got), = seen
+    assert f1.shape == (1, 256, 90, 160) and [tuple(t.shape[1:]) for t in got] == [
+        (90, 160), (45, 80), (22, 40), (11, 20)]
+    assert all(t.dtype == torch.float32 for t in got)
+    readings = {"path": _pyramid_error(got, f1, f2),
+                "pyramid_bf16": _pyramid_error([t.bfloat16() for t in got], f1, f2)}
+    if compute_dtype == "float32":
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            readings["tf32"] = _pyramid_error([t[: got[0].shape[0]] for t in real(f1, f2, 4)], f1, f2)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+    print(f"corr pyramid error / rms ({compute_dtype} features): {readings}")
+    assert readings["path"] < PYRAMID_RTOL
+    assert all(v > PYRAMID_RTOL for k, v in readings.items() if k != "path")

@@ -5,6 +5,7 @@ from vstab_torch.core.config import (
     DistConfig,
     FlowConfig,
     IOConfig,
+    RaftConfig,
     RenderConfig,
     SmoothConfig,
     preset,
@@ -15,6 +16,7 @@ __all__ = [
     "DistConfig",
     "FlowConfig",
     "IOConfig",
+    "RaftConfig",
     "RenderConfig",
     "SmoothConfig",
     "preset",

@@ -2,6 +2,11 @@
 defaults, `to_json`/`from_json` and `preset` as `vstab/core/config.py`, so a
 config that the JAX package wrote as JSON loads here unchanged.
 
+`RaftConfig` is the port's own: a second flow network (RAFT) that
+`Config.flow` may hold in place of `FlowConfig`, written to JSON with
+`"net": "raft"` and read back from it. The JAX package has no such network,
+and every JSON it writes loads as before.
+
 `FlowConfig.kernel_impl` and `RenderConfig.kernel_impl` are kept only for
 that JSON compatibility. The port never reads them: every kernel wrapper
 dispatches on the device of the tensor it is given (the CUDA kernel for a
@@ -12,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +40,36 @@ class FlowConfig:
     kernel_impl: str = "pallas"
     # Compute dtype for the network ('bfloat16' keeps MXU fed; params stay f32).
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class RaftConfig:
+    """RAFT (Teed & Deng, ECCV 2020, arXiv 2003.12039), the "large" model:
+    all-pairs correlation at 1/8 resolution, a pyramid lookup and
+    recurrent ConvGRU updates (`vstab_torch/flow/raft.py`)."""
+
+    net: str = "raft"
+    # GRU hidden state and context feature channels: RAFT large's 128 each,
+    # the only widths its layers take.
+    hidden: int = 128
+    context: int = 128
+    # Correlation pyramid levels and lookup radius: levels * (2r+1)^2 channels.
+    corr_levels: int = 4
+    corr_radius: int = 4
+    # Recurrent updates (RAFT's demo.py: 20).
+    iters: int = 20
+    # Encoders and update block; the correlation, lookup, coordinates and
+    # convex upsampling stay float32 (RAFT's --mixed_precision split).
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.net != "raft":
+            raise ValueError(f"RaftConfig.net must be 'raft', got {self.net!r}")
+        if (self.hidden, self.context) != (128, 128):
+            raise ValueError(
+                f"RaftConfig: hidden {self.hidden} and context {self.context}; RAFT large "
+                "has 128 of each, and its layers take no other width"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +164,7 @@ class IOConfig:
 class Config:
     """Top-level config: the one jit-static argument of vstab.pipeline."""
 
-    flow: FlowConfig = FlowConfig()
+    flow: Union[FlowConfig, RaftConfig] = FlowConfig()
     smooth: SmoothConfig = SmoothConfig()
     render: RenderConfig = RenderConfig()
     dist: DistConfig = DistConfig()
@@ -155,8 +190,9 @@ class Config:
                     )
             return cls(**kw)
 
+        flow = d.get("flow", {})
         return Config(
-            flow=_mk(FlowConfig, d.get("flow", {})),
+            flow=_mk(RaftConfig if flow.get("net") == "raft" else FlowConfig, flow),
             smooth=_mk(SmoothConfig, d.get("smooth", {})),
             render=_mk(RenderConfig, d.get("render", {})),
             dist=_mk(DistConfig, d.get("dist", {})),
@@ -185,6 +221,7 @@ def preset(name: str) -> Config:
 
 __all__ = [
     "FlowConfig",
+    "RaftConfig",
     "SmoothConfig",
     "RenderConfig",
     "DistConfig",

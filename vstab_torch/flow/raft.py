@@ -1,0 +1,346 @@
+"""RAFT, the port's second flow network (Teed & Deng, "RAFT: Recurrent
+All-Pairs Field Transforms for Optical Flow", ECCV 2020, arXiv 2003.12039;
+princeton-vl/RAFT `core/raft.py`, `extractor.py`, `corr.py`, `update.py`),
+the "large" model.
+
+Two `BasicEncoder`s (`fnet`: instance norm, 256 features; `cnet`: batch norm
+in eval mode, 128 hidden + 128 context channels) at 1/8 resolution; the
+all-pairs correlation of the two frames' features, pooled into a 4-level
+pyramid; `iters` recurrent updates, each a pyramid lookup around the current
+coordinates (`vstab_torch.kernels.corr_lookup`), the motion encoder, a
+separable ConvGRU and the flow head; convex upsampling x8 with a learned
+3x3 mask.
+
+The state dict has RAFT's own names and shapes (its module tree without the
+`module.` prefix of its checkpoints), so a published checkpoint loads
+without a converter. Precision follows RAFT's `--mixed_precision`: the
+encoders and the update block (motion encoder, GRU, flow head, mask head) in
+the compute dtype with float32 parameters; the correlation, its pyramid, the
+lookup, the coordinates and the convex upsampling in float32; TF32 off.
+
+One departure from the published code: in `test_mode` RAFT upsamples after
+every iteration and returns only the last result, so here the mask head and
+the upsampling run once, after the last iteration. No output changes.
+
+Layout: the port's frames [T,H,W,3] in [0, 1] and flow [T-1,H,W,2] (x, y);
+inside, NCHW tensors in channels-last memory, as cuDNN takes them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vstab_torch.core.config import RaftConfig
+from vstab_torch.core.precision import pin_full_f32
+from vstab_torch.flow.pwcnet import compute_dtype
+from vstab_torch.kernels.corr_lookup import corr_lookup
+from vstab_torch.utils import trace
+
+_CL = torch.channels_last
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, norm: str, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1, stride=stride)
+        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.norm1, self.norm2 = _norm(norm, cout), _norm(norm, cout)
+        if stride != 1:
+            self.norm3 = _norm(norm, cout)
+            self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride), self.norm3)
+
+
+class BasicEncoder(nn.Module):
+    def __init__(self, out_dim: int, norm: str):
+        super().__init__()
+        self.norm1 = _norm(norm, 64)
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.layer1 = nn.Sequential(ResidualBlock(64, 64, norm), ResidualBlock(64, 64, norm))
+        self.layer2 = nn.Sequential(ResidualBlock(64, 96, norm, 2), ResidualBlock(96, 96, norm))
+        self.layer3 = nn.Sequential(ResidualBlock(96, 128, norm, 2), ResidualBlock(128, 128, norm))
+        self.conv2 = nn.Conv2d(128, out_dim, 1)
+
+
+class BasicMotionEncoder(nn.Module):
+    def __init__(self, cfg: RaftConfig):
+        super().__init__()
+        cor_planes = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
+        self.convc1 = nn.Conv2d(cor_planes, 256, 1)
+        self.convc2 = nn.Conv2d(256, 192, 3, padding=1)
+        self.convf1 = nn.Conv2d(2, 128, 7, padding=3)
+        self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
+        self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
+
+
+class SepConvGRU(nn.Module):
+    def __init__(self, hidden: int, inp: int):
+        super().__init__()
+        for name, k, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in "zrq":
+                self.add_module(f"conv{gate}{name}", nn.Conv2d(hidden + inp, hidden, k, padding=pad))
+
+
+class FlowHead(nn.Module):
+    def __init__(self, cin: int = 128, hidden: int = 256):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, hidden, 3, padding=1)
+        self.conv2 = nn.Conv2d(hidden, 2, 3, padding=1)
+
+
+class BasicUpdateBlock(nn.Module):
+    def __init__(self, cfg: RaftConfig):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(cfg)
+        # the GRU's input: the context features and the motion encoder's 128
+        self.gru = SepConvGRU(cfg.hidden, cfg.context + 128)
+        self.flow_head = FlowHead(cfg.hidden, 256)
+        self.mask = nn.Sequential(
+            nn.Conv2d(cfg.hidden, 256, 3, padding=1), nn.ReLU(inplace=True), nn.Conv2d(256, 64 * 9, 1)
+        )
+
+
+class RAFT(nn.Module):
+    """RAFT's module tree: its parameter names and shapes, and its
+    initialisers. The forward pass is `estimate_flow_pairs`, over a state
+    dict."""
+
+    def __init__(self, cfg: RaftConfig = RaftConfig()):
+        super().__init__()
+        self.fnet = BasicEncoder(256, "instance")
+        self.cnet = BasicEncoder(cfg.hidden + cfg.context, "batch")
+        self.update_block = BasicUpdateBlock(cfg)
+
+
+def _norm(kind: str, ch: int) -> nn.Module:
+    return nn.BatchNorm2d(ch) if kind == "batch" else nn.InstanceNorm2d(ch)
+
+
+def init_params(
+    seed: Union[int, torch.Generator], cfg: RaftConfig = RaftConfig(), device=None
+) -> Dict[str, torch.Tensor]:
+    """A fresh state dict of RAFT on `device` (CUDA unless told otherwise),
+    with RAFT's initialisers drawn module by module from `seed`, an integer
+    or a `torch.Generator` that lies on the device: the encoders'
+    convolutions kaiming-normal (fan_out, relu) with torch's default biases,
+    norm weights 1 and biases 0 and batch-norm statistics 0 / 1, the update
+    block torch's default `Conv2d` initialisation."""
+    from vstab_torch.pipeline import resolve_device
+
+    dev = resolve_device(device)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=dev).manual_seed(seed)
+    with torch.device("meta"):
+        net = RAFT(cfg)
+    net = net.to_empty(device=dev)
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                bound = 1.0 / math.sqrt(fan_in)
+                if name.startswith("update_block."):
+                    # torch's default, kaiming_uniform_(a=sqrt(5)): U(-1/sqrt(fan_in), ..)
+                    m.weight.uniform_(-bound, bound, generator=gen)
+                else:
+                    fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                    m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
+                m.bias.uniform_(-bound, bound, generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+    return {k: v.detach() for k, v in net.state_dict().items()}
+
+
+def prepare(params: Mapping[str, torch.Tensor], cfg: RaftConfig) -> Dict[str, torch.Tensor]:
+    """The state dict as the forward pass takes it, cast once per call of
+    `clip_flow`: convolution weights and biases in the compute dtype (the
+    weights in channels-last memory), norms and everything else as given."""
+    dtype = compute_dtype(cfg)
+    out = dict(params)
+    for k, v in params.items():
+        if v.dim() == 4:  # a convolution's weight, and its bias
+            out[k] = v.to(dtype).contiguous(memory_format=_CL)
+            bias = k[: -len("weight")] + "bias"
+            out[bias] = params[bias].to(dtype)
+    return out
+
+
+def _conv(p, name: str, x: torch.Tensor, stride: int = 1, padding=0) -> torch.Tensor:
+    return F.conv2d(x, p[name + ".weight"], p[name + ".bias"], stride=stride, padding=padding)
+
+
+def _norm_apply(p, name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "instance":
+        y = F.instance_norm(x, eps=1e-5)
+    else:
+        y = F.batch_norm(x, p[name + ".running_mean"], p[name + ".running_var"],
+                         p[name + ".weight"], p[name + ".bias"], False, 0.0, 1e-5)
+    return y.contiguous(memory_format=_CL)
+
+
+def _residual(p, name: str, x: torch.Tensor, kind: str, stride: int) -> torch.Tensor:
+    y = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, stride, 1), kind))
+    y = F.relu(_norm_apply(p, name + ".norm2", _conv(p, name + ".conv2", y, 1, 1), kind))
+    if stride != 1:
+        x = _norm_apply(p, name + ".norm3", _conv(p, name + ".downsample.0", x, stride), kind)
+    return F.relu(x + y)
+
+
+def encode(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """`BasicEncoder` `name` ('fnet' or 'cnet') on images [N,3,H,W] in
+    [-1, 1] -> [N,C,H/8,W/8]: instance norm (per image, affine-free) or
+    batch norm in eval mode."""
+    x = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, 2, 3), kind))
+    for layer, stride in (("layer1", 1), ("layer2", 2), ("layer3", 2)):
+        x = _residual(p, f"{name}.{layer}.0", x, kind, stride)
+        x = _residual(p, f"{name}.{layer}.1", x, kind, 1)
+    return _conv(p, name + ".conv2", x)
+
+
+def corr_pyramid(f1: torch.Tensor, f2: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    """All-pairs correlation f1^T f2 / sqrt(C) of [N,C,H,W] feature maps in
+    float32, [N H W, H, W], and its `levels - 1` 2x2 average poolings over
+    the second frame's axes (RAFT's `CorrBlock`)."""
+    n, c, h, w = f1.shape
+    a = f1.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
+    b = f2.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
+    corr = torch.bmm(a, b.transpose(1, 2)).div_(math.sqrt(c)).view(n * h * w, 1, h, w)
+    pyramid = [corr]
+    for _ in range(levels - 1):
+        pyramid.append(F.avg_pool2d(pyramid[-1], 2, stride=2))
+    return [t.view(n * h * w, *t.shape[-2:]) for t in pyramid]
+
+
+def pyramid_bytes(h8: int, w8: int, levels: int) -> int:
+    """Bytes of one pair's float32 correlation pyramid at an h8 x w8 grid."""
+    return 4 * h8 * w8 * sum((h8 >> i) * (w8 >> i) for i in range(levels))
+
+
+def update(p: Mapping[str, torch.Tensor], net: torch.Tensor, inp: torch.Tensor,
+           corr: torch.Tensor, flow: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One `BasicUpdateBlock` step without its mask: (new hidden state,
+    delta flow [N,2,H,W] float32). corr [N,C,H,W] and net, inp in the
+    compute dtype; flow float32."""
+    e, g = "update_block.encoder.", "update_block.gru."
+    dtype = net.dtype
+    flo = flow.to(dtype)
+    cor = F.relu(_conv(p, e + "convc1", corr))
+    cor = F.relu(_conv(p, e + "convc2", cor, padding=1))
+    fl = F.relu(_conv(p, e + "convf1", flo, padding=3))
+    fl = F.relu(_conv(p, e + "convf2", fl, padding=1))
+    out = F.relu(_conv(p, e + "conv", torch.cat([cor, fl], dim=1), padding=1))
+    x = torch.cat([inp, out, flo], dim=1)
+    h = net
+    for i, pad in (("1", (0, 2)), ("2", (2, 0))):
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(_conv(p, g + "convz" + i, hx, padding=pad))
+        r = torch.sigmoid(_conv(p, g + "convr" + i, hx, padding=pad))
+        q = torch.tanh(_conv(p, g + "convq" + i, torch.cat([r * h, x], dim=1), padding=pad))
+        h = (1 - z) * h + z * q
+    f = "update_block.flow_head."
+    delta = _conv(p, f + "conv2", F.relu(_conv(p, f + "conv1", h, padding=1)), padding=1)
+    return h, delta.float()
+
+
+def upsample(p: Mapping[str, torch.Tensor], net: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Convex upsampling x8 of flow [N,2,H,W] with the mask of the hidden
+    state: pixel (8y+i, 8x+j) is the softmax-weighted sum over the 3x3
+    neighbourhood of 8 * flow, weights from mask channel k*64 + i*8 + j."""
+    n, _, h, w = flow.shape
+    mask = 0.25 * _conv(p, "update_block.mask.2",
+                        F.relu(_conv(p, "update_block.mask.0", net, padding=1)))
+    mask = torch.softmax(mask.float().reshape(n, 1, 9, 8, 8, h, w), dim=2)
+    up = F.unfold(8.0 * flow, [3, 3], padding=1).view(n, 2, 9, 1, 1, h, w)
+    up = torch.sum(mask * up, dim=2)  # [N,2,8,8,H,W]
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(n, 2, 8 * h, 8 * w)
+
+
+def _pad8(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
+    """RAFT's `InputPadder` (sintel mode): [N,C,H,W] edge-padded to multiples
+    of 8, split evenly between the two sides."""
+    h, w = x.shape[-2:]
+    ph, pw = (-h) % 8, (-w) % 8
+    pads = (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
+    if ph or pw:
+        x = F.pad(x, pads, mode="replicate").contiguous(memory_format=_CL)
+    return x, pads
+
+
+@torch.no_grad()
+def estimate_flow_pairs(p: Mapping[str, torch.Tensor], frames: torch.Tensor,
+                        cfg: RaftConfig = RaftConfig()) -> torch.Tensor:
+    """Consecutive-pair flow over a clip, [T,H,W,3] in [0, 1] ->
+    [T-1,H,W,2] float32; `p` is `prepare`'s cast of the state dict. `fnet`
+    encodes each frame once, shared by the two pairs it belongs to; `cnet`
+    each pair's first frame."""
+    pin_full_f32()
+    dtype, dev = compute_dtype(cfg), frames.is_cuda
+    t, h, w, _ = frames.shape
+    x, pads = _pad8((2.0 * frames.float() - 1.0).permute(0, 3, 1, 2).to(dtype))
+    with trace.span("vstab.flow.raft.encode", device=dev):
+        fmap = encode(p, "fnet", x, "instance")
+        ctx = encode(p, "cnet", x[:-1], "batch")
+        net = torch.tanh(ctx[:, : cfg.hidden]).contiguous(memory_format=_CL)
+        inp = torch.relu(ctx[:, cfg.hidden :]).contiguous(memory_format=_CL)
+    n, h8, w8 = t - 1, fmap.shape[2], fmap.shape[3]
+    with trace.span("vstab.flow.raft.corr", device=dev,
+                    corr_bytes=n * pyramid_bytes(h8, w8, cfg.corr_levels)):
+        pyramid = corr_pyramid(fmap[:-1], fmap[1:], cfg.corr_levels)
+    del fmap
+    yy, xx = torch.meshgrid(torch.arange(h8, device=frames.device, dtype=torch.float32),
+                            torch.arange(w8, device=frames.device, dtype=torch.float32),
+                            indexing="ij")
+    coords0 = torch.stack([xx, yy], dim=-1).expand(n, h8, w8, 2)  # [N,H,W,(x, y)]
+    coords1 = coords0.clone()
+    k = (2 * cfg.corr_radius + 1) ** 2 * cfg.corr_levels
+    window = (2 * cfg.corr_radius + 2) ** 2 * cfg.corr_levels
+    lookup_bytes = cfg.iters * n * h8 * w8 * (4 * window + 8 + k * x.element_size())
+    with trace.span("vstab.flow.raft.update", device=dev, iters=cfg.iters,
+                    lookup_bytes=lookup_bytes):
+        for _ in range(cfg.iters):
+            corr = corr_lookup(pyramid, coords1, cfg.corr_radius, dtype).permute(0, 3, 1, 2)
+            flow = (coords1 - coords0).permute(0, 3, 1, 2)
+            net, delta = update(p, net, inp, corr, flow)
+            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+    del pyramid
+    with trace.span("vstab.flow.raft.upsample", device=dev):
+        up = upsample(p, net, (coords1 - coords0).permute(0, 3, 1, 2))
+        up = up[:, :, pads[2] : pads[2] + h, pads[0] : pads[0] + w]
+        return up.permute(0, 2, 3, 1).contiguous()
+
+
+def pair_chunk(h: int, w: int, cfg: RaftConfig, chunk: int) -> int:
+    """Pairs in one chunk of `clip_flow` for RAFT at h x w: `chunk` (the
+    PWC-Net default), lowered until the chunk's float32 correlation
+    pyramids fit a budget of 16 GB. One pair's pyramid is 4 (HW/64)^2 x
+    (1 + 1/4 + 1/16 + 1/64) bytes: 1.10 GB at 720p (8 pairs, 8.8 GB),
+    5.6 GB at 1080p (2 pairs); at 4K (89 GB) none fits, and this raises."""
+    budget = 16e9
+    one = pyramid_bytes(-(-h // 8), -(-w // 8), cfg.corr_levels)
+    fit = int(budget // one)
+    if fit < 1:
+        raise ValueError(
+            f"RAFT's all-pairs correlation of one {h}x{w} pair takes {one / 1e9:.1f} GB, more "
+            f"than the {budget / 1e9:.0f} GB budget of a chunk: frames this large do not fit"
+        )
+    return min(chunk, fit)
+
+
+__all__ = [
+    "RAFT",
+    "corr_pyramid",
+    "encode",
+    "estimate_flow_pairs",
+    "init_params",
+    "pair_chunk",
+    "prepare",
+    "pyramid_bytes",
+    "update",
+    "upsample",
+]

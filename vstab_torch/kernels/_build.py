@@ -33,7 +33,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-SOURCES = ("cost_volume", "warp", "warp1d")
+SOURCES = ("cost_volume", "warp", "warp1d", "corr_lookup")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

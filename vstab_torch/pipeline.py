@@ -8,7 +8,9 @@ falling back to the CPU. On CUDA the four
 hand-written kernels carry the flow and render stages; on the CPU their
 plain torch versions do.
 
-`params` is the port's state dict of the flow network (`default_params`).
+`params` is the port's state dict of the flow network (`default_params`):
+PWC-Net's for a `FlowConfig`, RAFT's (`vstab_torch.flow.raft`) for a
+`RaftConfig` in `cfg.flow`.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from vstab_torch.core.config import Config, FlowConfig
+from vstab_torch.core.config import Config, FlowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
+from vstab_torch.flow import raft
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
 from vstab_torch.core.types import Clip
 from vstab_torch.render.render import (
@@ -72,10 +75,17 @@ def clip_flow(
     params: Params, frames: torch.Tensor, cfg: Config, pair_chunk: Optional[int] = None
 ) -> torch.Tensor:
     """Consecutive-pair flow over a clip in chunks of `pair_chunk` pairs:
-    [T,H,W,3] -> [T-1,H,W,2]. pair_chunk defaults to `default_pair_chunk`."""
+    [T,H,W,3] -> [T-1,H,W,2], by the network that cfg.flow configures.
+    pair_chunk defaults to `default_pair_chunk`, for RAFT lowered until a
+    chunk's correlation pyramids fit (`raft.pair_chunk`)."""
     t, h, w, _ = frames.shape
     if pair_chunk is None:
         pair_chunk = default_pair_chunk(h, w)
+    if isinstance(cfg.flow, RaftConfig):
+        pair_chunk = raft.pair_chunk(h, w, cfg.flow, pair_chunk)
+        params, flow_pairs = raft.prepare(params, cfg.flow), raft.estimate_flow_pairs
+    else:
+        flow_pairs = estimate_flow_pairs
     n_pairs = t - 1
     n_chunks = -(-n_pairs // pair_chunk)
     pad = n_chunks * pair_chunk + 1 - t
@@ -85,7 +95,7 @@ def clip_flow(
         flows = []
         for i in range(n_chunks):
             with trace.span("vstab.flow.chunk"):
-                flows.append(estimate_flow_pairs(
+                flows.append(flow_pairs(
                     params, frames[i * pair_chunk : (i + 1) * pair_chunk + 1], cfg.flow
                 ))
         return torch.cat(flows, dim=0)[:n_pairs]
@@ -229,8 +239,11 @@ def default_params(
 ) -> Dict[str, torch.Tensor]:
     """Flow-net state dict on `device` (CUDA by default): the newest
     checkpoint of ckpt_dir if it fits cfg.flow, else a fresh init from the
-    seed (torch's generator: not the JAX package's numbers)."""
+    seed (torch's generator: not the JAX package's numbers). RAFT has no
+    checkpoint in the repository: its state dict is drawn from the seed."""
     dev = resolve_device(device)
+    if isinstance(cfg.flow, RaftConfig):
+        return raft.init_params(cfg.seed if seed is None else seed, cfg.flow, dev)
     ckpt = latest_checkpoint(ckpt_dir)
     if ckpt is not None:
         params = params_from_jax(load_params(ckpt))
