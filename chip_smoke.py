@@ -188,6 +188,14 @@ dtypes and buckets; steps 22 and 12 after it; step 25 after step 8):
    timed beside its plain version, with its bound from its inputs (bytes
    over the memory rate); its row, with the RAFT path's launches, joins the
    `kernels` line.
+26. the flow networks' f32 prediction head (after step 25):
+   `vstab_torch.flow.layers.conv3x3_to2` (one f32 GEMM and one col2im) at
+   the level-2 head of a 720p chunk (8x192x320x565) and of a 4K chunk
+   (2x544x960x565), on a bf16 stack upcast to f32, held against cuDNN's f32
+   convolution with TF32 off (max error over max |out| under 2.5e-5) and
+   timed beside it (its NHWC-to-NCHW relayout included: the path's form
+   under autograd), with the bound (bytes over the memory rate) and the
+   stack's upcast; a `{"heads": ...}` line. No hand-written kernel.
 
 Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
@@ -1566,6 +1574,53 @@ def _all_launches() -> dict:
 _LOOKUP_ATOL = 2e-4
 
 
+# The f32 prediction head at pyramid level 2 (the estimator's 565-channel
+# stack): a 720p chunk of 8 pairs, a 4K chunk of 2 (frames padded to 2176).
+_HEAD_SHAPES = {"720p": (8, 192, 320, 565), "4K": (2, 544, 960, 565)}
+_HEAD_RTOL = 2.5e-5  # max error over max |out|: tests/test_torch_cuda.py HEAD_RTOL
+
+
+def head_phase(card: str, hbm: float) -> dict:
+    """The f32 prediction head's GEMM form (step 26) against cuDNN's f32
+    convolution, and both timed, with the bound and the upcast."""
+    from vstab_torch.core.precision import pin_full_f32
+    from vstab_torch.flow import layers
+
+    pin_full_f32()
+    rows = {}
+    for name, (n, h, w, c) in _HEAD_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(26)
+        stack = F.leaky_relu(torch.randn((n, h, w, c), generator=g, device="cuda", dtype=torch.bfloat16), 0.1)
+        x = stack.float()
+        head = layers.Conv(c, 2, dtype=torch.float32, device="cuda")
+        head.reset_parameters(g)
+        wt, b = head.weight.detach(), torch.randn(2, generator=g, device="cuda")
+
+        def gemm():
+            return layers.conv3x3_to2(x, wt, b)
+
+        def library():
+            return F.conv2d(x.permute(0, 3, 1, 2), wt, b, padding=1)
+
+        with torch.no_grad():
+            want = library().permute(0, 2, 3, 1)
+            err = float((gemm() - want).abs().max() / want.abs().max())
+            if not err < _HEAD_RTOL:
+                raise AssertionError(f"head {name}: max error / max |out| {err:.3e} over {_HEAD_RTOL}")
+            row = {"shape": [n, h, w, c], "max_err_over_max": err, "ms": _time_ms(gemm),
+                   "library_ms": _time_ms(library), "upcast_ms": _time_ms(lambda: stack.float()),
+                   "bytes": x.numel() * 4 + n * h * w * 2 * 4, "flops": 2 * n * h * w * c * 18}
+        _bound(row, hbm)
+        _say(f"head {name} {row['shape']} f32: GEMM form {row['ms']:.4f} ms, cuDNN f32 conv with its "
+             f"relayout {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+             f"bf16 upcast {row['upcast_ms']:.4f} ms, max err / max |out| {err:.2e} ({card})")
+        rows[name] = row
+        del stack, x, want
+        torch.cuda.empty_cache()
+    _say(json.dumps({"heads": rows}))
+    return rows
+
+
 def raft_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     """RAFT as the flow network (step 25). `stabilize` with
     `Config(flow=RaftConfig())`, weights drawn from the configuration's seed,
@@ -1817,7 +1872,7 @@ def train_phase(card: str, tmp: str) -> dict:
     # A step: 5 cost volumes and 4 feature warps forward and as many backward;
     # the batch's own 4 warps (the pair and three occluders) have no gradient.
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
     _say("train: " + json.dumps({
         "steps": steps, "run_s": wall, "steps_per_s_with_setup": steps / wall, "chunks": history,
         "launches": launches, "peak_mem_gb": peak, "card": card}))
@@ -1852,7 +1907,7 @@ def train_phase(card: str, tmp: str) -> dict:
     used = {k: n - before[k] for k, n in _all_launches().items()}
     _say("train: 5 photometric steps on one fixed pair: " + json.dumps({"steps": photo, "launches": used}))
     want_photo = {"cost_volume": 25, "bilinear_warp": 25, "vwarp": 0, "hwarp": 0,
-                  "cost_volume_bwd": 25, "bilinear_warp_bwd": 25}
+                  "cost_volume_bwd": 25, "bilinear_warp_bwd": 25, "corr_lookup": 0}
     if used != want_photo:
         raise AssertionError(f"5 photometric steps launched {used}, expected {want_photo}")
     if not all(np.isfinite(v) for m in photo for v in m.values()) or set(photo[0]) != {"loss", "grad_norm", "photo", "smooth"}:
@@ -1979,7 +2034,7 @@ def train_parity_phase(card: str) -> dict:
         summary["warm_start_s"] = time.perf_counter() - t0
 
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
     if launches != want:
         misses.append(f"launches {launches}, expected {want}")
     held = q.hold_steps(ref, hist)
@@ -2218,7 +2273,7 @@ def dp_train_phase(card: str) -> dict:
     scenes = torch.from_numpy(T.make_scene_pool(64, *_TRAIN_HW, seed=0)).to(dev)
     init = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
 
     def run(group):
         """Three steps from `init` on draws from seed 7, every launch
@@ -2386,6 +2441,7 @@ def main() -> int:
     paths["affine_720p"] = affine_phase(frames, params, card)
     paths["batch_720p"] = batch_phase(frames, params, card)
     raft_run = raft_phase(frames, card, hbm)
+    head_phase(card, hbm)
     del frames
     torch.cuda.empty_cache()
     paths.update(sharded_phase(frames_np, params, card))

@@ -1383,3 +1383,40 @@ def test_raft_corr_pyramid_is_float32_on_the_timed_path(cuda, monkeypatch, compu
     print(f"corr pyramid error / rms ({compute_dtype} features): {readings}")
     assert readings["path"] < PYRAMID_RTOL
     assert all(v > PYRAMID_RTOL for k, v in readings.items() if k != "path")
+
+
+# The f32 prediction head's GEMM form (`layers.conv3x3_to2`) against cuDNN's
+# f32 convolution with TF32 off, at the 720p chunk's level-2 head: max error
+# over the largest output. Both sum 5085 f32 products, each in its own order.
+# Read on an H100 (700 W): the path 3.2e-6, the same GEMM with TF32 allowed
+# 2.1e-4 (its weights rounded to 10 bits; the bf16 stack is exact in TF32);
+# the bound lies about 8 times from each.
+HEAD_RTOL = 2.5e-5
+
+
+def test_flow_head_gemm_form_matches_cudnn_f32_and_a_tf32_product_would_not(cuda):
+    import torch.nn.functional as F
+
+    from vstab_torch.core.precision import pin_full_f32
+    from vstab_torch.flow import layers
+
+    pin_full_f32()
+    g = torch.Generator(device=cuda).manual_seed(20)
+    stack = torch.randn((8, 192, 320, 565), generator=g, device=cuda, dtype=torch.bfloat16)
+    x = F.leaky_relu(stack, 0.1).float()  # the estimator's bf16 stack, upcast
+    del stack
+    head = layers.Conv(565, 2, dtype=torch.float32, device=cuda)
+    head.reset_parameters(g)
+    w, b = head.weight.detach(), torch.randn(2, generator=g, device=cuda)
+    with torch.no_grad():
+        want = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
+        scale = float(want.abs().max())
+        readings = {"path": float((layers.conv3x3_to2(x, w, b) - want).abs().max()) / scale}
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            readings["tf32"] = float((layers.conv3x3_to2(x, w, b) - want).abs().max()) / scale
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+    print(f"flow head max error / max |out| against cuDNN f32: {readings}")
+    assert readings["path"] < HEAD_RTOL < readings["tf32"]

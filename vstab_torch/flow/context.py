@@ -3,7 +3,8 @@
 Consumes the finest estimator's features and flow, emits flow + residual.
 The fixed channels (128,128,128,96,64,32) are zipped with the configured
 dilations, so a shorter dilation tuple uses fewer layers, as in the
-reference. `predict_res` computes in f32, the rest in `dtype`.
+reference. `predict_res` computes in f32 (through `layers.predict`), the
+rest in `dtype`.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from vstab_torch.flow.layers import Conv, leaky
+from vstab_torch.flow.layers import Conv, leaky, predict
 
 CHANNELS = (128, 128, 128, 96, 64, 32)
 
@@ -38,7 +39,7 @@ class ContextNet(nn.Module):
         x = torch.cat([feat.to(self.dtype), flow.to(self.dtype)], dim=-1)
         for i in range(self.n):
             x = leaky(getattr(self, f"dconv{i}")(x))
-        return flow + self.predict_res(x.float())
+        return predict(self.predict_res, x, flow)
 
 
 __all__ = ["ContextNet"]

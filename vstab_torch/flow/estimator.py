@@ -3,7 +3,8 @@
 
 DenseNet-style conv stack over [cost volume, f1, upsampled flow, upsampled
 features]; each conv's output is concatenated in front of its input
-(`[y, x]`). `predict_flow` and `upflow` compute in f32, the rest in `dtype`.
+(`[y, x]`). `predict_flow` and `upflow` compute in f32, the rest in `dtype`;
+`predict_flow` goes through `layers.predict`.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from vstab_torch.flow.layers import Conv, ConvTranspose, leaky
+from vstab_torch.flow.layers import Conv, ConvTranspose, leaky, predict
 
 
 class FlowEstimator(nn.Module):
@@ -31,13 +32,16 @@ class FlowEstimator(nn.Module):
         self.out_channels = c
         self.predict_flow = Conv(c, 2, dtype=torch.float32, device=device)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (flow [N,H,W,2] f32, last features [N,H,W,out_channels])."""
+    def forward(
+        self, x: torch.Tensor, upflow: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (flow [N,H,W,2] f32, last features [N,H,W,out_channels]);
+        the flow is the level's prediction plus `upflow` where given."""
         x = x.to(self.dtype)
         for i in range(self.n):
             y = leaky(getattr(self, f"conv{i}")(x))
             x = torch.cat([y, x], dim=-1)
-        return self.predict_flow(x.float()), x
+        return predict(self.predict_flow, x, upflow), x
 
 
 class UpBlock(nn.Module):

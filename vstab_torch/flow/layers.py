@@ -10,6 +10,10 @@ Both take and return [N,H,W,C] tensors and compute in their `dtype`, with
 the weights cast to it, as flax's `dtype=` does. A channels-last tensor
 permuted to NCHW is in torch's channels_last memory format, which cuDNN
 convolves without a relayout.
+
+`predict` runs the networks' f32 prediction heads (3x3 convolutions down to
+2 channels): by `conv3x3_to2`, a matrix product and a col2im, where autograd
+records no graph; by the head's `Conv` where it does.
 """
 
 from __future__ import annotations
@@ -103,4 +107,53 @@ class ConvTranspose(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-__all__ = ["Conv", "ConvTranspose", "leaky"]
+# Heads computed by `conv3x3_to2` in this process, as `CudaKernel.launches`
+# counts a kernel's launches.
+heads_gemm = 0
+
+
+def conv3x3_to2(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A 3x3, stride-1, 'SAME' convolution from C channels to 2, in f32:
+    [N,H,W,C] -> [N,H,W,2], plus `residual` [N,H,W,2] where given. `weight`
+    is [2,C,3,3] (the `Conv` layout), `bias` [2].
+
+    One matrix product gives every pixel's nine taps of both outputs,
+    Z = x [NHW,C] @ Wk [C,18]; one `F.fold` (col2im) adds each tap into the
+    pixel it reaches. fold sends tap (ki, kj) of pixel p to p + (ki-1, kj-1),
+    where the convolution takes tap (i, j) of pixel p from p + (i-1, j-1):
+    the same sum once Wk's taps are flipped in space (ki = 2 - i). Then the
+    bias, then the residual. Only the order of the f32 sums differs from the
+    convolution's. The product follows the process's TF32 flag, which the
+    networks' forwards pin off (`pin_full_f32`)."""
+    global heads_gemm
+    n, h, w, c = x.shape
+    if weight.shape != (2, c, 3, 3):
+        raise ValueError(f"conv3x3_to2 takes a [2,{c},3,3] weight, got {list(weight.shape)}")
+    wk = weight.flip(2, 3).transpose(0, 1).reshape(c, 18)  # [C, (out, ki, kj)]
+    z = x.reshape(n * h * w, c) @ wk
+    y = F.fold(z.view(n, h * w, 18).transpose(1, 2), (h, w), kernel_size=3, padding=1)
+    out = torch.add(y.permute(0, 2, 3, 1), bias, out=x.new_empty((n, h, w, 2)))
+    if residual is not None:
+        out += residual
+    heads_gemm += 1
+    return out
+
+
+def predict(head: Conv, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An f32 prediction head (a 3x3, stride-1, dilation-1 `Conv` to 2
+    channels), head(x) + residual: `conv3x3_to2` where autograd records no
+    graph (inference, `torch.no_grad`), the head's convolution where it
+    records one (a training step)."""
+    x = x.float()
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, head.weight, head.bias, residual)
+    ):
+        y = head(x)
+        return y if residual is None else y + residual
+    return conv3x3_to2(x, head.weight.float(), head.bias.float(), residual)
+
+
+__all__ = ["Conv", "ConvTranspose", "conv3x3_to2", "leaky", "predict"]

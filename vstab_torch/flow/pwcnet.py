@@ -99,10 +99,7 @@ class PWCNet(nn.Module):
             )
             cv = leaky(cv.to(dtype))
             inp = torch.cat([cv, f1.to(dtype)] + up_inputs, dim=-1)
-            flow_l, feat = getattr(self, f"estimator{idx}")(inp)
-            if flow is not None:
-                flow_l = flow_l + upflow
-            flow = flow_l
+            flow, feat = getattr(self, f"estimator{idx}")(inp, upflow)
             flows.append(flow)
 
         flow = self.context(feat, flow)

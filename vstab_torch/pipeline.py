@@ -22,7 +22,7 @@ import torch
 
 from vstab_torch.core.config import Config, FlowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
-from vstab_torch.flow import raft
+from vstab_torch.flow import layers, raft
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
 from vstab_torch.core.types import Clip
 from vstab_torch.render.render import (
@@ -94,10 +94,12 @@ def clip_flow(
             frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])], dim=0)
         flows = []
         for i in range(n_chunks):
-            with trace.span("vstab.flow.chunk"):
+            with trace.span("vstab.flow.chunk") as s:
+                heads = layers.heads_gemm
                 flows.append(flow_pairs(
                     params, frames[i * pair_chunk : (i + 1) * pair_chunk + 1], cfg.flow
                 ))
+                s.set(heads_gemm=layers.heads_gemm - heads)
         return torch.cat(flows, dim=0)[:n_pairs]
 
 
