@@ -381,7 +381,7 @@ def test_stabilize_sharded_auto_crop_takes_the_min_over_real_frames(env, world):
     """'auto' crop: one scale on every rank, the port's own clip-wide one."""
     from vstab_torch.core import config as tcfg
     from vstab_torch.pipeline import path_to_flow, smooth_paths, clip_flow
-    from vstab_torch.render.render import _auto_scale
+    from vstab_torch.render.render import _auto_scale_per_frame
 
     worlds, ref = env
     scales = {info["pipe/auto"]["crop_scale"] for _, info in worlds[world].ranks()}
@@ -389,7 +389,7 @@ def test_stabilize_sharded_auto_crop_takes_the_min_over_real_frames(env, world):
     cfg = _cfg(tcfg, "auto")
     frames = torch.from_numpy(ref["clips"]["auto"])
     path, _ = smooth_paths(clip_flow(ref["tiny"], frames, cfg), cfg, (48, 64))
-    want = float(_auto_scale(path_to_flow(path, cfg, (48, 64))))
+    want = float(_auto_scale_per_frame(path_to_flow(path, cfg, (48, 64))).min())
     assert abs(scales.pop() - want) <= 1e-5 and want < 1.0
 
 

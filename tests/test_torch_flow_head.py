@@ -2,7 +2,7 @@
 predict`, `conv3x3_to2`) on the CPU: the matrix-product-and-col2im form held
 to `F.conv2d` in f64, the estimator and the context network with and
 without autograd, and the count of heads a chunk of `clip_flow` took in
-that form.
+that form (calls of `conv3x3_to2`, counted through a wrapper).
 
 Tolerance of the head against f64: 1e-5 of the output's largest magnitude.
 The head sums 9*C (up to 6525) f32 products, as the convolution does, in
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 import vstab_torch
+from vstab_torch import pipeline
 from vstab_torch.core import config as tcfg
 from vstab_torch.eval.synthetic import make_shaky_clip
 from vstab_torch.flow import layers, raft
@@ -25,7 +26,6 @@ from vstab_torch.flow import train as ttrain
 from vstab_torch.flow.context import ContextNet
 from vstab_torch.flow.estimator import FlowEstimator
 from vstab_torch.flow.pwcnet import build_net, init_params
-from vstab_torch.utils import trace
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -85,6 +85,20 @@ def test_head_refuses_other_weights(shape):
         layers.conv3x3_to2(torch.zeros((1, 3, 3, 8)), torch.zeros(shape), torch.zeros(2))
 
 
+@pytest.fixture
+def heads(monkeypatch):
+    """Calls of `layers.conv3x3_to2` (the GEMM form of a head) from here on:
+    a list that grows by one a call."""
+    calls, real = [], layers.conv3x3_to2
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(layers, "conv3x3_to2", counted)
+    return calls
+
+
 def _estimator():
     torch.manual_seed(3)
     est = FlowEstimator(117, dtype=torch.float32)
@@ -93,82 +107,87 @@ def _estimator():
 
 
 @pytest.mark.parametrize("with_upflow", [False, True])
-def test_estimator_without_a_graph_equals_autograd(with_upflow):
+def test_estimator_without_a_graph_equals_autograd(with_upflow, heads):
     est = _estimator()
     g = torch.Generator().manual_seed(4)
     x = torch.randn((2, 7, 9, 117), generator=g)
     up = torch.randn((2, 7, 9, 2), generator=g) if with_upflow else None
-    before = layers.heads_gemm
     with torch.no_grad():
         fast, feat = est(x, up)
-    assert layers.heads_gemm == before + 1
+    assert len(heads) == 1
     slow, feat_slow = est(x, up)
-    assert layers.heads_gemm == before + 1  # autograd keeps the convolution
+    assert len(heads) == 1  # autograd keeps the convolution
     assert slow.requires_grad and not fast.requires_grad
     torch.testing.assert_close(feat, feat_slow.detach(), rtol=0, atol=0)
     assert _rel_err(fast, slow.detach().double()) < RTOL
 
 
-def test_context_without_a_graph_equals_autograd():
+def test_context_without_a_graph_equals_autograd(heads):
     torch.manual_seed(5)
     ctx = ContextNet(567, dtype=torch.float32)
     g = torch.Generator().manual_seed(6)
     feat, flow = torch.randn((2, 6, 11, 565), generator=g), torch.randn((2, 6, 11, 2), generator=g)
-    before = layers.heads_gemm
     with torch.inference_mode():
         fast = ctx(feat, flow)
-    assert layers.heads_gemm == before + 1
+    assert len(heads) == 1
     slow = ctx(feat, flow)
-    assert layers.heads_gemm == before + 1
+    assert len(heads) == 1
     assert _rel_err(fast, slow.detach().double()) < RTOL
 
 
-def test_autograd_takes_the_convolution_and_backpropagates():
+def test_autograd_takes_the_convolution_and_backpropagates(heads):
     est = _estimator()
     g = torch.Generator().manual_seed(7)
     x = torch.randn((2, 5, 6, 117), generator=g)
     up = torch.randn((2, 5, 6, 2), generator=g, requires_grad=True)
-    before = layers.heads_gemm
     flow, _ = est(x, up)
     (flow ** 2).sum().backward()
-    assert layers.heads_gemm == before
+    assert heads == []
     w = est.predict_flow.weight.grad
     assert w is not None and torch.isfinite(w).all() and w.abs().sum() > 0
     torch.testing.assert_close(up.grad, 2 * flow.detach())
 
 
-def _heads_of_chunks(run):
-    trace.clear()
-    try:
-        with trace.recording():
-            run()
-        return [r["attrs"]["heads_gemm"] for r in trace.records() if r["name"] == "vstab.flow.chunk"]
-    finally:
-        trace.clear()
+def _heads_of_chunks(monkeypatch, heads, owner, run):
+    """The GEMM heads of each chunk of `clip_flow` in `run()`: calls of
+    `conv3x3_to2` inside each call of `owner.estimate_flow_pairs`, the
+    function `clip_flow` calls once a chunk."""
+    per_chunk, real = [], owner.estimate_flow_pairs
+
+    def chunk(*a, **kw):
+        before = len(heads)
+        out = real(*a, **kw)
+        per_chunk.append(len(heads) - before)
+        return out
+
+    monkeypatch.setattr(owner, "estimate_flow_pairs", chunk)
+    run()
+    return per_chunk
 
 
-def test_chunks_count_the_heads_of_pwcnet_and_none_of_raft():
+def test_chunks_count_the_heads_of_pwcnet_and_none_of_raft(monkeypatch, heads):
     cfg = tcfg.Config(flow=tcfg.FlowConfig(compute_dtype="float32"),
                       render=tcfg.RenderConfig(kernel_impl="xla"))
     params = init_params(0, cfg.flow, "cpu")
     clip = make_shaky_clip(t=10, h=64, w=96, seed=0)[0]
-    heads = _heads_of_chunks(lambda: vstab_torch.stabilize(clip, params, cfg, device="cpu"))
-    assert heads == [6, 6]  # 9 pairs: two chunks, 5 predict_flow + 1 predict_res each
+    got = _heads_of_chunks(monkeypatch, heads, pipeline,
+                           lambda: vstab_torch.stabilize(clip, params, cfg, device="cpu"))
+    assert got == [6, 6]  # 9 pairs: two chunks, 5 predict_flow + 1 predict_res each
 
     rcfg = tcfg.Config(flow=tcfg.RaftConfig(iters=1, compute_dtype="float32"),
                        render=cfg.render)
     rparams = raft.init_params(0, rcfg.flow, "cpu")
-    heads = _heads_of_chunks(lambda: vstab_torch.stabilize(clip[:3], rparams, rcfg, device="cpu"))
-    assert heads == [0]
+    got = _heads_of_chunks(monkeypatch, heads, raft,
+                           lambda: vstab_torch.stabilize(clip[:3], rparams, rcfg, device="cpu"))
+    assert got == [0]
 
 
-def test_a_training_step_takes_no_gemm_head():
+def test_a_training_step_takes_no_gemm_head(heads):
     flow_cfg = tcfg.FlowConfig(pyramid_channels=(8, 12, 16), estimator_channels=(16, 12),
                                compute_dtype="float32", output_level=1)
     net = build_net(init_params(0, flow_cfg, "cpu"), flow_cfg)
     opt = ttrain.make_optimizer(net.parameters(), lr=1e-4)
     step = ttrain.make_train_step(net, opt, "supervised", ttrain.cosine_schedule(opt, 10, 0.02))
     batch = ttrain._sample_batch(torch.Generator().manual_seed(0), torch.rand(4, 64, 64, 3), 2, 4.0)
-    before = layers.heads_gemm
     step(batch)
-    assert layers.heads_gemm == before
+    assert heads == []

@@ -9,6 +9,7 @@ of the plain forward and against `jax.vjp` of the XLA twins.
 """
 
 import ast
+import importlib
 import os
 
 import jax
@@ -377,6 +378,25 @@ def test_port_imports_no_jax_flax_msgpack_or_vstab():
             if top in banned or (top == "cv2" and not (rel in cv2_ok and in_function)):
                 bad.append((rel, m))
     assert not bad, bad
+
+
+def test_chip_smoke_imports_resolve():
+    """Every `from vstab_torch... import name` of `chip_smoke.py`, which runs
+    only on the card, names something its module still has."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    found, missing = 0, []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module.split(".")[0] == "vstab_torch":
+            mod = importlib.import_module(node.module)
+            for a in node.names:
+                found += 1
+                if not hasattr(mod, a.name):
+                    try:
+                        importlib.import_module(f"{node.module}.{a.name}")
+                    except ImportError:
+                        missing.append(f"{node.module}.{a.name}")
+    assert found > 20 and not missing, missing
 
 
 @pytest.mark.parametrize("shape,dpad", [((5, 12, 17, 3), 4), ((3, 8, 9, 1), 17), ((2, 6, 7, 3), 1)])

@@ -51,8 +51,8 @@ from vstab_torch.core import config as tcfg
 from vstab_torch.core.config import RenderConfig
 from vstab_torch.eval.synthetic import make_shaky_clip
 from vstab_torch.kernels import hwarp, hwarp_plain, vwarp, vwarp_plain
-from vstab_torch.pipeline_blocked import _solve_path
 from vstab_torch.render import render as port
+from vstab_torch.smooth.stages import solve_path
 from vstab_torch.utils.checkpoint import params_from_jax
 
 torch.set_num_threads(1)
@@ -164,7 +164,7 @@ def test_solve_path_of_a_1024_frame_clip_matches_reference(method):
     cfg_r = jcfg.Config(smooth=jcfg.SmoothConfig(method=method))
     cfg_p = tcfg.Config(smooth=tcfg.SmoothConfig(method=method))
     want = solve_path_ref(motion, cfg_r)
-    got = _solve_path(motion, cfg_p, torch.device("cpu"))
+    got = solve_path(torch.from_numpy(motion), cfg_p.smooth)[0].numpy()
     assert got.shape == want.shape == ((t, 2, 3) if method == "affine" else (t, 12, 16, 2))
     if method == "affine":
         np.testing.assert_allclose(got[..., :2], want[..., :2], rtol=0, atol=1e-5)

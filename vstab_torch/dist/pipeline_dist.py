@@ -27,7 +27,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -36,59 +35,9 @@ from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.dist.halo import all_gather_cat, exclusive_prefix_sum, extend_right
 from vstab_torch.dist.mesh import Mesh, make_mesh, time_size, time_slice
 from vstab_torch.dist.schur_dist import schur_solve_shard
-from vstab_torch.pipeline import _on, clip_flow, resolve_device
-from vstab_torch.render.render import (
-    _auto_scale_per_frame,
-    affine_to_flow,
-    grid_to_flow,
-    pick_max_disp,
-    render_stabilized,
-    residual_disp_bound,
-)
-from vstab_torch.smooth.affine import (
-    chain_path,
-    fit_affine_from_flow,
-    smooth_path,
-    stabilizing_transforms,
-)
-from vstab_torch.smooth.sparse_ls import smooth_profiles, temporal_diagonals, vertex_motion
-
-_METHODS = ("affine", "sparse_ls")
-
-
-def _band_diagonals(t_pad: int, sc) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Global temporal band diagonals in the length-T convention [T]."""
-    td0, td1, td2 = temporal_diagonals(t_pad, sc.lambda_smooth, sc.lambda_accel)
-    return (
-        td0,
-        np.concatenate([td1, np.zeros(t_pad - len(td1), np.float32)]),
-        np.concatenate([td2, np.zeros(t_pad - len(td2), np.float32)]),
-    )
-
-
-def _solve_sparse(motion: torch.Tensor, rows: slice, t_pad: int, cfg: Config, group) -> torch.Tensor:
-    """Distributed sparse-LS solve: this rank's vertex motion [T_loc,GH,GW,2]
-    -> its stabilizing displacement grid [T_loc,GH,GW,2]."""
-    # vertex profiles: local cumsum plus the totals of the ranks before.
-    local_cum = torch.cumsum(motion, dim=0)
-    offset = exclusive_prefix_sum(local_cum[-1], group)
-    c = torch.cat([torch.zeros_like(motion[:1]), local_cum[:-1]], dim=0) + offset[None]
-    # the one-device smoothing on this rank's rows of the global bands, with
-    # the distributed Schur solve.
-    bands = tuple(x[rows] for x in _band_diagonals(t_pad, cfg.smooth))
-    solve = functools.partial(schur_solve_shard, block_len=cfg.smooth.block_len, group=group)
-    return c - smooth_profiles(c, cfg.smooth, bands=bands, solve=solve)
-
-
-def _solve_affine(pair: torch.Tensor, rows: slice, t_pad: int, cfg: Config, group) -> torch.Tensor:
-    """Distributed affine solve: this rank's pair affines [T_loc,2,3] -> its
-    stabilizing warps [T_loc,2,3]. The pair affines are small (24 bytes a
-    frame): after one all_gather every rank chains and low-passes the whole
-    path and keeps its rows."""
-    full = all_gather_cat(pair, group)  # [T_pad, 2, 3]
-    path = chain_path(full[: t_pad - 1])
-    sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
-    return stabilizing_transforms(path, sm)[rows]
+from vstab_torch.pipeline import clip_flow, params_on, resolve_device
+from vstab_torch.render.render import auto_crop_scales, pick_max_disp, render_stabilized
+from vstab_torch.smooth.stages import Shard, pair_motion, residual_bound, solve_path, warp_field
 
 
 def _local_frames(frames, rows: slice, t: int, dev: torch.device) -> torch.Tensor:
@@ -124,11 +73,6 @@ def stabilize_sharded(
 
     Runs on CUDA unless `device="cpu"`; the collectives take the backend
     of the tensors' device (gloo for the CPU, NCCL for CUDA)."""
-    if cfg.smooth.method not in _METHODS:
-        raise ValueError(
-            f"stabilize_sharded: unknown smoothing method {cfg.smooth.method!r} "
-            f"(expected 'affine' or 'sparse_ls')"
-        )
     if mesh is None:
         if dist.is_initialized():
             raise ValueError(
@@ -145,23 +89,24 @@ def stabilize_sharded(
     t_pad = -(-t // (n_t * bl)) * (n_t * bl)
     rows = time_slice(t_pad, mesh)
     t_loc = rows.stop - rows.start
-    params = _on(params, dev)
+    params = params_on(params, dev)
 
     # Stage 1: flow over this rank's frames and the next rank's first one
     # (the last rank repeats its last frame: a freeze pair),
     # then the distributed solve.
     local = _local_frames(frames, rows, t, dev)
     flow = clip_flow(params, extend_right(local, 1, group), cfg)  # [T_loc, H, W, 2]
-    if cfg.smooth.method == "affine":
-        path = _solve_affine(fit_affine_from_flow(flow), rows, t_pad, cfg, group)
-    else:
-        motion = vertex_motion(flow, cfg.smooth.grid_size, cfg.smooth.robust_iters)
-        path = _solve_sparse(motion, rows, t_pad, cfg, group)
+    shard = Shard(
+        rows, t_pad, gather=functools.partial(all_gather_cat, group=group),
+        offset=functools.partial(exclusive_prefix_sum, group=group),
+        solve=functools.partial(schur_solve_shard, block_len=bl, group=group),
+    )
+    path, _ = solve_path(pair_motion(flow, cfg.smooth), cfg.smooth, shard)
     del flow
 
     # The render bucket from the residual bound of the whole padded path:
     # a MAX over the ranks, and one scalar read back to the host.
-    bound = residual_disp_bound(path, h, w, cfg.smooth.method)
+    bound = residual_bound(path, cfg.smooth, (h, w))
     if dist.is_initialized():
         dist.all_reduce(bound, op=dist.ReduceOp.MAX, group=group)
     bound = float(bound)
@@ -169,12 +114,12 @@ def stabilize_sharded(
 
     # Stage 2: render this rank's frames. 'auto' crops every frame by the
     # smallest per-frame scale over the real frames of the clip.
-    warp_flow = affine_to_flow(path, h, w) if cfg.smooth.method == "affine" else grid_to_flow(path, h, w)
+    warp_flow = warp_field(path, cfg.smooth, (h, w))
     scale = None
-    if cfg.render.crop_mode == "auto":
+    per_frame = auto_crop_scales([warp_flow], cfg.render)
+    if per_frame is not None:
         gidx = torch.arange(rows.start, rows.stop, device=dev)
-        per_frame = torch.where(gidx < t, _auto_scale_per_frame(warp_flow), 1.0)
-        scale = per_frame.amin()
+        scale = torch.where(gidx < t, next(per_frame), 1.0).amin()
         if dist.is_initialized():
             dist.all_reduce(scale, op=dist.ReduceOp.MIN, group=group)
     out = render_stabilized(local, warp_flow, cfg.render, scale=scale, max_disp=max_disp)

@@ -107,11 +107,6 @@ class ConvTranspose(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-# Heads computed by `conv3x3_to2` in this process, as `CudaKernel.launches`
-# counts a kernel's launches.
-heads_gemm = 0
-
-
 def conv3x3_to2(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     residual: Optional[torch.Tensor] = None,
@@ -128,7 +123,6 @@ def conv3x3_to2(
     bias, then the residual. Only the order of the f32 sums differs from the
     convolution's. The product follows the process's TF32 flag, which the
     networks' forwards pin off (`pin_full_f32`)."""
-    global heads_gemm
     n, h, w, c = x.shape
     if weight.shape != (2, c, 3, 3):
         raise ValueError(f"conv3x3_to2 takes a [2,{c},3,3] weight, got {list(weight.shape)}")
@@ -138,7 +132,6 @@ def conv3x3_to2(
     out = torch.add(y.permute(0, 2, 3, 1), bias, out=x.new_empty((n, h, w, 2)))
     if residual is not None:
         out += residual
-    heads_gemm += 1
     return out
 
 

@@ -16,28 +16,17 @@ PWC-Net's for a `FlowConfig`, RAFT's (`vstab_torch.flow.raft`) for a
 from __future__ import annotations
 
 import logging
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
 from vstab_torch.core.config import Config, FlowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
-from vstab_torch.flow import layers, raft
+from vstab_torch.flow import raft
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
 from vstab_torch.core.types import Clip
-from vstab_torch.render.render import (
-    affine_to_flow,
-    grid_to_flow,
-    pick_max_disp,
-    render_stabilized,
-    residual_disp_bound,
-)
-from vstab_torch.smooth.affine import (
-    chain_path,
-    fit_affine_from_flow,
-    smooth_path,
-    stabilizing_transforms,
-)
+from vstab_torch.render.render import pick_max_disp, render_stabilized
+from vstab_torch.smooth.stages import pair_motion, residual_bound, solve_path, warp_field
 from vstab_torch.utils import trace
 from vstab_torch.utils.checkpoint import latest_checkpoint, load_params, params_from_jax
 
@@ -58,7 +47,8 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
-def _on(params: Params, dev: torch.device) -> Dict[str, torch.Tensor]:
+def params_on(params: Params, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The state dict `params` with every tensor on `dev`."""
     return {k: v.to(dev) for k, v in params.items()}
 
 
@@ -94,40 +84,26 @@ def clip_flow(
             frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])], dim=0)
         flows = []
         for i in range(n_chunks):
-            with trace.span("vstab.flow.chunk") as s:
-                heads = layers.heads_gemm
+            with trace.span("vstab.flow.chunk"):
                 flows.append(flow_pairs(
                     params, frames[i * pair_chunk : (i + 1) * pair_chunk + 1], cfg.flow
                 ))
-                s.set(heads_gemm=layers.heads_gemm - heads)
         return torch.cat(flows, dim=0)[:n_pairs]
 
 
 @torch.inference_mode()
 def smooth_paths(flow: torch.Tensor, cfg: Config, hw: Tuple[int, int]):
     """Flow -> (compact per-frame path, diagnostics): stabilizing affine
-    warps [T,2,3] or grid displacements [T,GH,GW,2]."""
+    warps [T,2,3] or grid displacements [T,GH,GW,2], by the smoothing method."""
     with trace.span("vstab.smooth", device=flow.is_cuda):
-        if cfg.smooth.method == "affine":
-            path = chain_path(fit_affine_from_flow(flow))
-            sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
-            warps = stabilizing_transforms(path, sm)
-            return warps, {"warps": warps, "path": path.transforms, "smoothed": sm.transforms}
-        if cfg.smooth.method == "sparse_ls":
-            from vstab_torch.smooth.sparse_ls import smooth_grid_field
-
-            return smooth_grid_field(flow, hw, cfg.smooth)
-    raise ValueError(f"unknown smoothing method: {cfg.smooth.method}")
+        return solve_path(pair_motion(flow, cfg.smooth), cfg.smooth)
 
 
 @torch.inference_mode()
 def path_to_flow(path: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.Tensor:
     """Per-frame path -> dense backward-warp flow [T,H,W,2]."""
-    h, w = hw
     with trace.span("vstab.warp_field", device=path.is_cuda):
-        if cfg.smooth.method == "affine":
-            return affine_to_flow(path, h, w)
-        return grid_to_flow(path, h, w)
+        return warp_field(path, cfg.smooth, hw)
 
 
 def render_bucket(path, cfg: Config, hw: Tuple[int, int]) -> Tuple[float, int]:
@@ -135,12 +111,28 @@ def render_bucket(path, cfg: Config, hw: Tuple[int, int]) -> Tuple[float, int]:
     (tensor or array [T,...]): the one place where the adaptive bound of the
     render warps is derived. The bound is computed where the path lies and
     one scalar is read back to the host: the clip's one wait for the card."""
-    h, w = hw
     with trace.span("vstab.bucket", device=torch.is_tensor(path) and path.is_cuda) as s:
-        bound = float(residual_disp_bound(path, h, w, cfg.smooth.method))
+        bound = float(residual_bound(path, cfg.smooth, hw))
         d = pick_max_disp(bound, cfg.render)
         s.set(bound_px=bound, max_disp=d)
     return bound, d
+
+
+@torch.inference_mode()
+def render_path(
+    frames: torch.Tensor, path: torch.Tensor, cfg: Config, max_disp: Optional[int] = None,
+    check: Optional[Callable[[torch.Tensor], None]] = None,
+) -> torch.Tensor:
+    """Render a clip [T,H,W,3] by its solved path: the bucket of the path
+    (with cfg.render.adaptive_max_disp, unless given as `max_disp`), its
+    warp field, which `check` sees where given, then `render_stabilized`."""
+    hw = tuple(frames.shape[1:3])
+    if max_disp is None and cfg.render.adaptive_max_disp:
+        _, max_disp = render_bucket(path, cfg, hw)
+    flow = path_to_flow(path, cfg, hw)
+    if check is not None:
+        check(flow)
+    return render_stabilized(frames, flow, cfg.render, max_disp=max_disp)
 
 
 @torch.inference_mode()
@@ -149,10 +141,8 @@ def smooth_and_render(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Smoothing + render with the static bound cfg.render.max_residual_disp."""
     pin_full_f32()
-    t, h, w, _ = frames.shape
-    path, diags = smooth_paths(flow, cfg, (h, w))
-    out = render_stabilized(frames, path_to_flow(path, cfg, (h, w)), cfg.render)
-    return out, diags
+    path, diags = smooth_paths(flow, cfg, tuple(frames.shape[1:3]))
+    return render_path(frames, path, cfg, cfg.render.max_residual_disp), diags
 
 
 @torch.inference_mode()
@@ -169,7 +159,7 @@ def stabilize(
         frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
         t, h, w, _ = frames.shape
         s.set(t=t, h=h, w=w)
-        params = _on(params, dev)
+        params = params_on(params, dev)
         return stabilize_from_flow(frames, clip_flow(params, frames, cfg), cfg)
 
 
@@ -181,13 +171,8 @@ def stabilize_from_flow(
     [T,H,W,3] given their pair flow [T-1,H,W,2]. The flow depends only on
     cfg.flow, so runs that differ in smoothing or render can share it."""
     pin_full_f32()
-    if not cfg.render.adaptive_max_disp:
-        return smooth_and_render(frames, flow, cfg)
-    t, h, w, _ = frames.shape
-    path, diags = smooth_paths(flow, cfg, (h, w))
-    _, d = render_bucket(path, cfg, (h, w))
-    out = render_stabilized(frames, path_to_flow(path, cfg, (h, w)), cfg.render, max_disp=d)
-    return out, diags
+    path, diags = smooth_paths(flow, cfg, tuple(frames.shape[1:3]))
+    return render_path(frames, path, cfg), diags
 
 
 def stabilize_clip(clip: Clip, params: Params, cfg: Config = Config(), device=None) -> Clip:
@@ -211,18 +196,15 @@ def stabilize_batch(
         frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
         b, t, h, w, _ = frames.shape
         s.set(b=b, t=t, h=h, w=w)
-        params = _on(params, dev)
+        params = params_on(params, dev)
         paths = torch.stack(
             [smooth_paths(clip_flow(params, fr, cfg), cfg, (h, w))[0] for fr in frames]
         )
-        max_disp = None
-        if cfg.render.adaptive_max_disp:
-            _, max_disp = render_bucket(paths.flatten(0, 1), cfg, (h, w))
+        flat = paths.flatten(0, 1)
+        max_disp = render_bucket(flat, cfg, (h, w))[1] if cfg.render.adaptive_max_disp else None
         out = torch.empty_like(frames)
         for i in range(b):
-            out[i] = render_stabilized(
-                frames[i], path_to_flow(paths[i], cfg, (h, w)), cfg.render, max_disp=max_disp
-            )
+            out[i] = render_path(frames[i], paths[i], cfg, max_disp)
         return out
 
 
@@ -250,7 +232,7 @@ def default_params(
     if ckpt is not None:
         params = params_from_jax(load_params(ckpt))
         if _params_match(params, cfg.flow):
-            return _on(params, dev)
+            return params_on(params, dev)
         log.warning(
             "checkpoint %s does not match the configured flow architecture; "
             "using fresh init", ckpt,
@@ -258,15 +240,17 @@ def default_params(
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed if seed is None else seed)
         net = PWCNet(cfg.flow)
-    return _on({k: v.detach() for k, v in net.state_dict().items()}, dev)
+    return params_on({k: v.detach() for k, v in net.state_dict().items()}, dev)
 
 
 __all__ = [
     "clip_flow",
     "default_pair_chunk",
     "default_params",
+    "params_on",
     "path_to_flow",
     "render_bucket",
+    "render_path",
     "resolve_device",
     "smooth_and_render",
     "smooth_paths",

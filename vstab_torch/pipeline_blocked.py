@@ -12,7 +12,7 @@ Sweeps (each streams blocks of `block_len` frames through the card):
   1. motion:  flow on [B+1]-frame blocks (1-frame overlap = the pair halo)
               -> vertex motion / pair affines, accumulated on the host;
   -. solve:   global smoothing solve on the tiny path arrays (device);
-  2. scale:   'auto' crop only: per-frame zoom bound, global min;
+  2. scale:   the clip's crop zoom; 'auto': min of the per-frame bounds;
   3. render:  warp + crop each block with the global scale, stream out.
 
 How the host and the card overlap:
@@ -77,20 +77,14 @@ from vstab_torch.core.config import Config
 from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.pipeline import (
     Params,
-    _on,
     clip_flow,
+    params_on,
     path_to_flow,
     render_bucket,
     resolve_device,
 )
-from vstab_torch.render.render import _auto_scale_per_frame, render_stabilized
-from vstab_torch.smooth.affine import (
-    chain_path,
-    fit_affine_from_flow,
-    smooth_path,
-    stabilizing_transforms,
-)
-from vstab_torch.smooth.sparse_ls import smooth_profiles, vertex_motion
+from vstab_torch.render.render import auto_crop_scales, fixed_crop_scale, render_stabilized
+from vstab_torch.smooth.stages import pair_motion, solve_path
 from vstab_torch.utils import trace
 
 log = logging.getLogger("vstab_torch.blocked")
@@ -111,23 +105,8 @@ def _norm(frames: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def _block_motion(params: Params, blk: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """[B+1,H,W,3] frames (uint8 or f32) -> per-pair motion summary: vertex
-    motion [B,GH,GW,2] (sparse_ls) or pair affines [B,2,3] (affine)."""
-    flow = clip_flow(params, _norm(blk), cfg)
-    if cfg.smooth.method == "affine":
-        return fit_affine_from_flow(flow)
-    return vertex_motion(flow, cfg.smooth.grid_size, cfg.smooth.robust_iters)
-
-
-def _block_warp_flow(path_blk: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.Tensor:
-    """Per-frame path block -> dense backward-warp flow [B,H,W,2]."""
-    return path_to_flow(path_blk, cfg, hw)
-
-
-@torch.inference_mode()
-def _block_scales(path_blk: torch.Tensor, cfg: Config, hw: Tuple[int, int]) -> torch.Tensor:
-    """Per-frame auto-crop zoom bound for one block: -> [B]."""
-    return _auto_scale_per_frame(_block_warp_flow(path_blk, cfg, hw))
+    """[B+1,H,W,3] frames (uint8 or f32) -> `pair_motion` of its B pairs."""
+    return pair_motion(clip_flow(params, _norm(blk), cfg), cfg.smooth)
 
 
 @torch.inference_mode()
@@ -135,29 +114,11 @@ def _block_render(
     frames: torch.Tensor, path_blk: torch.Tensor, scale, cfg: Config,
     max_disp: Optional[int] = None, to_uint8: bool = False,
 ) -> torch.Tensor:
-    wf = _block_warp_flow(path_blk, cfg, tuple(frames.shape[1:3]))
+    wf = path_to_flow(path_blk, cfg, tuple(frames.shape[1:3]))
     out = render_stabilized(_norm(frames), wf, cfg.render, scale=scale, max_disp=max_disp)
     if to_uint8:  # quantize on the device: the fetch is a quarter the size
         return torch.clamp(out * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
     return out
-
-
-# ---------------------------------------------------------------------------
-# Global path solve (tiny: runs whole-clip on the device regardless of T)
-# ---------------------------------------------------------------------------
-
-
-@torch.inference_mode()
-def _solve_path(motion: np.ndarray, cfg: Config, device) -> np.ndarray:
-    """Per-pair motion summaries [T-1,...] -> per-frame stabilizing warp
-    parameters [T,...]: disp grid [T,GH,GW,2] or affine warps [T,2,3]."""
-    m = torch.from_numpy(np.ascontiguousarray(motion)).to(device)
-    if cfg.smooth.method == "affine":
-        path = chain_path(m)
-        sm = smooth_path(path, sigma=cfg.smooth.affine_sigma)
-        return stabilizing_transforms(path, sm).cpu().numpy()
-    c = torch.cat([torch.zeros_like(m[:1]), torch.cumsum(m, dim=0)], dim=0)
-    return (c - smooth_profiles(c, cfg.smooth)).cpu().numpy()
 
 
 def _rss_gb() -> float:
@@ -470,7 +431,7 @@ def stabilize_blocked(
         out[start : start + blk.shape[0]] = blk
 
     with _Prefault(out, b) as prefault:
-        _run_blocked(chunks, writer, t, _on(params, dev), cfg, b, dev, prefault=prefault)
+        _run_blocked(chunks, writer, t, params_on(params, dev), cfg, b, dev, prefault=prefault)
     return out
 
 
@@ -514,7 +475,7 @@ def stabilize_video_blocked(
     if t <= 0:  # the container did not report a frame count: decode once
         t = sum(blk.shape[0] for blk, _ in chunks())
 
-    params = _on(params, dev)
+    params = params_on(params, dev)
     resume_state = (
         _ResumeState(out_path + ".resume", cfg, t, b, in_path=in_path, hw=hw, params=params)
         if resume
@@ -674,27 +635,26 @@ def _run_blocked(
         # --- global path solve (tiny) + adaptive render displacement bound.
         # The path goes to the device once; the sweeps below slice it there.
         with trace.span("vstab.blocked.solve", into=sweep_s):
-            path = _solve_path(motion, cfg, dev)  # [T, GH,GW,2] or [T,2,3]
+            path = solve_path(torch.from_numpy(np.ascontiguousarray(motion)).to(dev),
+                              cfg.smooth)[0].cpu().numpy()  # [T, GH,GW,2] or [T,2,3]
             _, max_disp = render_bucket(path, cfg, hw)
             path_dev = torch.from_numpy(path).to(dev)
         log.info("path solved: T=%d, render max_disp=%d", t, max_disp)
 
-        # --- sweep 2: global auto-crop scale (elementwise over dense flow,
-        # streamed in path-blocks; no pixels touched).
+        # --- sweep 2: the clip's crop zoom, made once; 'auto' streams the
+        # dense flow in path-blocks (elementwise; no pixels touched).
         with trace.span("vstab.blocked.scale_sweep", into=sweep_s):
-            scale = None
-            if cfg.render.crop_mode == "auto":
+            scale = fixed_crop_scale(cfg.render, dev)
+            starts = range(0, t, b)
+            per_block = auto_crop_scales(
+                (path_to_flow(_pad_block(path_dev[i : i + b], b), cfg, hw) for i in starts), cfg.render)
+            if per_block is not None:
                 smin = resume_state.load_scale() if resume_state is not None else None
                 if smin is None:
-                    smin = 1.0
-                    for i in range(0, t, b):
-                        s = _block_scales(_pad_block(path_dev[i : i + b], b), cfg, hw)
-                        smin = min(smin, float(s[: min(b, t - i)].min()))
+                    smin = min([1.0] + [float(s[: t - i].min()) for i, s in zip(starts, per_block)])
                     if resume_state is not None:
                         resume_state.save_scale(smin)
                 scale = torch.tensor(smin, dtype=torch.float32, device=dev)
-            elif cfg.render.crop_mode == "fixed":
-                scale = torch.tensor(cfg.render.fixed_crop_ratio, dtype=torch.float32, device=dev)
 
         with trace.span("vstab.blocked.render_sweep", into=sweep_s):
             _render_sweep(make_chunks, writer, t, path_dev, scale, max_disp, cfg, b, dev,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import logging
-from typing import Optional, Union
+from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -89,9 +89,25 @@ def _auto_scale_per_frame(flow: torch.Tensor, margin: float = 0.0) -> torch.Tens
     return torch.clamp(sreq.amin(dim=(1, 2)) - margin, 0.5, 1.0)
 
 
-def _auto_scale(flow: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
-    """Clip-global auto-crop zoom: min of the per-frame scales (scalar)."""
-    return _auto_scale_per_frame(flow, margin).min()
+def auto_crop_scales(
+    flows: Iterable[torch.Tensor], cfg: RenderConfig
+) -> Optional[Iterator[torch.Tensor]]:
+    """The 'auto' crop's per-frame zoom bounds [B] of each warp flow
+    [B,H,W,2] of `flows`, as asked for; None, `flows` untouched, for the
+    other crop modes. A clip rendered in parts (blocks, ranks) passes the
+    minimum over its real frames to `render_stabilized` as `scale`."""
+    if cfg.crop_mode != "auto":
+        return None
+    return map(_auto_scale_per_frame, flows)
+
+
+def fixed_crop_scale(cfg: RenderConfig, device) -> Optional[torch.Tensor]:
+    """The 'fixed' crop's zoom, a 0-dim f32 tensor on `device`, else None. A
+    clip rendered in many dispatches makes it once: copying a host number to
+    a CUDA device waits for the device."""
+    if cfg.crop_mode != "fixed":
+        return None
+    return torch.as_tensor(cfg.fixed_crop_ratio, dtype=torch.float32, device=device)
 
 
 # Buckets of the render warp's displacement bound (see the reference).
@@ -169,7 +185,7 @@ def render_stabilized(
 
     `scale` (a 0-dim tensor or a float) overrides the crop zoom: the blocked
     pipeline needs the 'auto' minimum over all blocks' per-frame scales,
-    known only after a first sweep. `max_disp` overrides
+    known only after a first sweep (`auto_crop_scales`). `max_disp` overrides
     cfg.max_residual_disp; callers derive it from the solved path with
     residual_disp_bound / pick_max_disp."""
     t, h, w, c = frames.shape
@@ -180,12 +196,9 @@ def render_stabilized(
         if cfg.crop_mode == "none":
             return warped * mask + cfg.border_value * (1.0 - mask)
         if scale is None:
-            if cfg.crop_mode == "fixed":
-                scale = cfg.fixed_crop_ratio
-            elif cfg.crop_mode == "auto":
-                scale = _auto_scale(flow)
-            else:
-                raise ValueError(f"unknown crop_mode: {cfg.crop_mode}")
+            scale = fixed_crop_scale(cfg, frames.device)
+        if scale is None:
+            scale = _auto_scale_per_frame(flow).min()
         scale = torch.as_tensor(scale, dtype=torch.float32, device=frames.device)
         out = zoom_resample(warped, scale)
         maskz = zoom_resample(mask, scale)
@@ -205,6 +218,8 @@ def render_grid(frames: torch.Tensor, disp: torch.Tensor, cfg: RenderConfig) -> 
 
 __all__ = [
     "affine_to_flow",
+    "auto_crop_scales",
+    "fixed_crop_scale",
     "grid_to_flow",
     "pick_max_disp",
     "render_affine",

@@ -27,14 +27,13 @@ from vstab_torch.core.config import Config
 from vstab_torch.core.precision import pin_full_f32
 from vstab_torch.pipeline import (
     Params,
-    _on,
     clip_flow,
-    path_to_flow,
+    params_on,
     render_bucket,
+    render_path,
     resolve_device,
     smooth_paths,
 )
-from vstab_torch.render.render import render_stabilized
 
 # What the port checks in place of checkify's float and index error sets,
 # each named in the error it raises.
@@ -59,13 +58,15 @@ def _smooth_and_render_checked(
     path, diags = smooth_paths(flow, cfg, hw)
     _finite("smoothed path", path)
     bound, d = render_bucket(path, cfg, hw)
-    warp_flow = path_to_flow(path, cfg, hw)
-    _finite("residual flow", warp_flow)
-    if bound + 0.5 > d:  # `pick_max_disp`'s slack for the rounded mean shift
-        raise IndexError(
-            f"stabilize_checked: {CHECKS[2]} up to {bound:.2f} px (+0.5) leaves the render's bucket +-{d} px"
-        )
-    out = render_stabilized(frames, warp_flow, cfg.render, max_disp=d)
+
+    def check(warp_flow: torch.Tensor) -> None:
+        _finite("residual flow", warp_flow)
+        if bound + 0.5 > d:  # `pick_max_disp`'s slack for the rounded mean shift
+            raise IndexError(
+                f"stabilize_checked: {CHECKS[2]} up to {bound:.2f} px (+0.5) leaves the render's bucket +-{d} px"
+            )
+
+    out = render_path(frames, path, cfg, d, check=check)
     _finite("rendered frames", out)
     return out, diags
 
@@ -83,7 +84,7 @@ def stabilize_checked(
     pin_full_f32()
     frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
     _finite("input frames", frames)
-    flow = clip_flow(_on(params, dev), frames, cfg)
+    flow = clip_flow(params_on(params, dev), frames, cfg)
     return _smooth_and_render_checked(frames, flow, cfg)
 
 
