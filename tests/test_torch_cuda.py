@@ -1420,3 +1420,47 @@ def test_flow_head_gemm_form_matches_cudnn_f32_and_a_tf32_product_would_not(cuda
             torch.backends.cuda.matmul.allow_tf32 = old
     print(f"flow head max error / max |out| against cuDNN f32: {readings}")
     assert readings["path"] < HEAD_RTOL < readings["tf32"]
+
+
+def test_aligned_dense_stack_launches_no_channel_padding(clip_720p):
+    """One 8-pair chunk of the 720p clip. Its five estimators and the context
+    network, each called under torch.profiler on the input it took in the
+    chunk's forward: in `prepare`'s layout cuDNN launches no
+    `nhwcAddPaddingKernel`; in the published layout it does (the control).
+    The two layouts' flows of the chunk differ by a mean |difference| under
+    a fifth of the cell's `step_mean_px` limit of 0.065, which pools the
+    same flows per grid cell (read on an H100, 700 W: 6.2e-3 px, max 0.14:
+    cuDNN picks other bf16 kernels for the wider inputs, which round
+    otherwise; the program reads up to 0.023 against the f32 reference)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vstab_torch.flow import pwcnet
+
+    frames, params, cfg = clip_720p
+    flows, pads = {}, {}
+    with torch.inference_mode():
+        chunk, _ = pwcnet.pad_to_multiple(frames[:9], 2 ** len(cfg.flow.pyramid_channels))
+        for name, p in (("published", dict(params)), ("aligned", pwcnet.prepare(params, cfg.flow))):
+            net = pwcnet.build_net(p, cfg.flow)
+            stack = [getattr(net, f"estimator{i}") for i in net.levels()] + [net.context]
+            taken = []
+            hooks = [m.register_forward_pre_hook(lambda m, args: taken.append((m, args))) for m in stack]
+            feats = net.pyramid(chunk)
+            pair = (tuple(f[:-1] for f in feats), tuple(f[1:] for f in feats))
+            flows[name] = net(chunk[:-1], chunk[1:], feats=pair)["flow"]
+            for h in hooks:
+                h.remove()
+            for m, args in taken:  # cuDNN's first calls at these shapes
+                m(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for m, args in taken:
+                    m(*args)
+                torch.cuda.synchronize()
+            pads[name] = sum(1 for e in prof.events() if "nhwcAddPaddingKernel" in e.name)
+    diff = (flows["aligned"] - flows["published"]).abs()
+    print(f"nhwcAddPaddingKernel launches of the estimators and the context {pads}; flow "
+          f"|aligned - published| mean {float(diff.mean()):.3e} px, max {float(diff.max()):.3e} px")
+    assert len(taken) == 6
+    assert pads["published"] > 0 and pads["aligned"] == 0, pads
+    assert float(diff.mean()) < 0.065 / 5

@@ -59,7 +59,7 @@ def measure(
     "peak_mem_gb"}, and with `stages` the stream ms of flow (`vstab.flow`),
     smooth (`vstab.smooth` + `vstab.bucket`: solve, bound and bucket) and
     render (`vstab.warp_field` + `vstab.render`) in one more run recorded by
-    `trace`, with the bound and the bucket."""
+    `trace`, with the bound, the bucket and the flow net's `aligned_pad`."""
     if not frames.is_cuda:
         raise RuntimeError("bench.measure times the CUDA path: give it frames on the card")
     t = frames.shape[0]
@@ -82,12 +82,14 @@ def measure(
                 ms[r["name"]] = ms.get(r["name"], 0.0) + r["device_ms"]
         # no bucket where cfg.render.adaptive_max_disp is off
         bucket = next((r["attrs"] for r in recs if r["root"] == root and r["name"] == "vstab.bucket"), {})
+        flow = next(r["attrs"] for r in recs if r["root"] == root and r["name"] == "vstab.flow")
         res.update(
             flow_ms=ms["vstab.flow"],
             smooth_ms=ms["vstab.smooth"] + ms.get("vstab.bucket", 0.0),
             render_ms=ms["vstab.warp_field"] + ms["vstab.render"],
             residual_bound_px=bucket.get("bound_px"),
             max_disp=bucket.get("max_disp"),
+            aligned_pad=flow.get("aligned_pad"),
         )
     return res
 

@@ -12,11 +12,20 @@ is differentiable on both: on CUDA the two wrappers route through their
 CPU autograd differentiates the plain versions. `estimate_flow*` run without a graph.
 
 `params` everywhere is the port's state dict (`vstab_torch.utils.
-checkpoint.params_from_jax`, or `PWCNet(cfg).state_dict()`).
+checkpoint.params_from_jax`, or `PWCNet(cfg).state_dict()`), or `prepare`'s
+aligned layout of it: every estimator's input and the context network's
+padded with zero channels to a multiple of `ALIGN`, each weight given the
+matching zero columns. cuDNN's NHWC tensor-core convolutions copy a bf16
+input whose channels are not a multiple of 8 into a padded buffer before
+every call (`nhwcAddPaddingKernel`); the dense stacks (117 to 725 channels
+at the published widths) then reach them as they are. The zero channels'
+products are exact zeros. `build_net` takes either layout, by the widths of
+the tensors it is given.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -32,6 +41,7 @@ from vstab_torch.flow.layers import Conv, ConvTranspose, leaky
 from vstab_torch.kernels import bilinear_warp, cost_volume
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ALIGN = 8  # channels a bf16 NHWC input of cuDNN's tensor-core convolutions takes as it is
 
 
 def compute_dtype(cfg: FlowConfig) -> torch.dtype:
@@ -40,33 +50,54 @@ def compute_dtype(cfg: FlowConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
+def _levels(cfg: FlowConfig) -> range:
+    return range(len(cfg.pyramid_channels) - 1, cfg.output_level - 2, -1)
+
+
+def _layout(cfg: FlowConfig, align: int) -> Tuple[Dict[int, Tuple[int, int]], Tuple[int, int]]:
+    """The inputs' widths: {pyramid index: (channels, zero channels that
+    follow them)} of each estimator, coarsest first, and the same pair for
+    the context network. The zeros bring each input to a multiple of
+    `align` (none where `align` is 1, the published layout)."""
+    nd = (2 * cfg.search_radius + 1) ** 2
+    ests, feat = {}, None
+    for idx in _levels(cfg):
+        cin = nd + cfg.pyramid_channels[idx] + (0 if feat is None else 4)
+        ests[idx] = (cin, (-cin) % align)
+        feat = sum(ests[idx]) + sum(cfg.estimator_channels)
+    return ests, (feat + 2, (-(feat + 2)) % align)
+
+
 class PWCNet(nn.Module):
     """forward(im1, im2, feats=None) -> {'flow': [N,H,W,2] f32,
     'flow_pyramid': per-level flows, coarsest first}. H and W must be
-    divisible by 2**len(pyramid_channels); `estimate_flow` pads."""
+    divisible by 2**len(pyramid_channels); `estimate_flow` pads.
 
-    def __init__(self, cfg: FlowConfig = FlowConfig(), device: Optional[str] = None):
+    With `align` > 1 the net takes `prepare`'s layout: each estimator's
+    input [cost volume, f1, upflow, upfeat] ends in `pads[idx]` zero
+    channels that bring it to a multiple of `align`, and the context
+    network's input [feat, flow] in `context.pad` more."""
+
+    def __init__(self, cfg: FlowConfig = FlowConfig(), device: Optional[str] = None, align: int = 1):
         super().__init__()
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.dtype = dtype
-        pc = cfg.pyramid_channels
-        nd = (2 * cfg.search_radius + 1) ** 2
-        self.pyramid = FeaturePyramid(pc, dtype=dtype, device=device)
+        self.pyramid = FeaturePyramid(cfg.pyramid_channels, dtype=dtype, device=device)
+        ests, (ctx_in, ctx_pad) = _layout(cfg, align)
+        self.pads = {idx: pad for idx, (_, pad) in ests.items()}
         feat_ch = None
-        for idx in self.levels():
-            cin = nd + pc[idx]
+        for idx, (cin, pad) in ests.items():
             if feat_ch is not None:
                 self.add_module(f"up{idx}", UpBlock(feat_ch, dtype=dtype, device=device))
-                cin += 4
-            est = FlowEstimator(cin, cfg.estimator_channels, dtype=dtype, device=device)
+            est = FlowEstimator(cin + pad, cfg.estimator_channels, dtype=dtype, device=device)
             self.add_module(f"estimator{idx}", est)
             feat_ch = est.out_channels
-        self.context = ContextNet(feat_ch + 2, cfg.context_dilations, dtype=dtype, device=device)
+        self.context = ContextNet(ctx_in, cfg.context_dilations, dtype=dtype, device=device, pad=ctx_pad)
 
     def levels(self):
         """Pyramid indices estimated, coarsest first (index = level - 1)."""
-        return range(len(self.cfg.pyramid_channels) - 1, self.cfg.output_level - 2, -1)
+        return _levels(self.cfg)
 
     def forward(
         self, im1: torch.Tensor, im2: torch.Tensor,
@@ -98,7 +129,10 @@ class PWCNet(nn.Module):
                 radius=cfg.search_radius,
             )
             cv = leaky(cv.to(dtype))
-            inp = torch.cat([cv, f1.to(dtype)] + up_inputs, dim=-1)
+            parts = [cv, f1.to(dtype)] + up_inputs
+            if self.pads[idx]:
+                parts.append(cv.new_zeros((*cv.shape[:-1], self.pads[idx])))
+            inp = torch.cat(parts, dim=-1)
             flow, feat = getattr(self, f"estimator{idx}")(inp, upflow)
             flows.append(flow)
 
@@ -113,11 +147,85 @@ class PWCNet(nn.Module):
         return {"flow": full.float(), "flow_pyramid": tuple(flows)}
 
 
+def _align(params: Mapping[str, torch.Tensor]) -> int:
+    """The `align` of `params`' layout, read from the widths of the
+    estimators' and the context network's first convolutions: all are
+    multiples of ALIGN in `prepare`'s layout. Where the published widths
+    are too, both layouts are one."""
+    widths = [v.shape[1] for k, v in params.items() if k.endswith("conv0.weight")]
+    return ALIGN if all(w % ALIGN == 0 for w in widths) else 1
+
+
 def build_net(params: Mapping[str, torch.Tensor], cfg: FlowConfig) -> PWCNet:
-    """A PWCNet whose parameters are the tensors of `params` (no copy)."""
-    net = PWCNet(cfg, device="meta")
+    """A PWCNet whose parameters are the tensors of `params` (no copy), in
+    the published layout or in `prepare`'s, as their widths say."""
+    net = PWCNet(cfg, device="meta", align=_align(params))
     net.load_state_dict(params, strict=True, assign=True)
     return net.eval()
+
+
+def aligned_pad(params: Mapping[str, torch.Tensor], cfg: FlowConfig) -> int:
+    """Zero channels `params`' layout adds to the estimators' and the
+    context network's inputs: 0 in the published layout."""
+    ests, (_, ctx_pad) = _layout(cfg, _align(params))
+    return sum(pad for _, pad in ests.values()) + ctx_pad
+
+
+@functools.lru_cache(maxsize=16)
+def _compute_dtype_layers(cfg: FlowConfig) -> Tuple[str, ...]:
+    """Names of the convolutions that compute in the net's compute dtype
+    (all but the f32 heads and `upflow`)."""
+    net = PWCNet(cfg, device="meta")
+    return tuple(name for name, m in net.named_modules()
+                 if isinstance(m, (Conv, ConvTranspose)) and m.dtype == net.dtype)
+
+
+def _widen(w: torch.Tensor, dim: int, at: int, n: int) -> torch.Tensor:
+    """`w` with `n` zero slices inserted along `dim` before index `at`."""
+    if not n:
+        return w
+    zeros = w.new_zeros((*w.shape[:dim], n, *w.shape[dim + 1 :]))
+    return torch.cat([w.narrow(dim, 0, at), zeros, w.narrow(dim, at, w.shape[dim] - at)], dim)
+
+
+def aligned_params(params: Mapping[str, torch.Tensor], cfg: FlowConfig) -> Dict[str, torch.Tensor]:
+    """`params` (published layout) in `PWCNet(cfg, align=ALIGN)`'s layout,
+    each tensor in its dtype: every weight that reads a zero channel gets a
+    zero column there (each estimator's convolutions and `predict_flow` at
+    the end of their input, the next level's `upfeat` at the end of its
+    rows, the context's `dconv0` after the stack and after the flow)."""
+    ests, (_, ctx_pad) = _layout(cfg, ALIGN)
+    out = dict(params)
+    pad = 0  # zero channels at the end of the previous level's stack
+    for idx, (_, est_pad) in ests.items():
+        if pad:
+            k = f"up{idx}.upfeat.weight"
+            out[k] = _widen(out[k], 0, out[k].shape[0], pad)
+        pad = est_pad
+        for name in [f"conv{i}" for i in range(len(cfg.estimator_channels))] + ["predict_flow"]:
+            k = f"estimator{idx}.{name}.weight"
+            out[k] = _widen(out[k], 1, out[k].shape[1], pad)
+    k = "context.dconv0.weight"
+    feat = out[k].shape[1] - 2  # the published [feat, flow] columns
+    out[k] = _widen(_widen(out[k], 1, feat, pad), 1, feat + pad + 2, ctx_pad)
+    return out
+
+
+def prepare(params: Mapping[str, torch.Tensor], cfg: FlowConfig) -> Dict[str, torch.Tensor]:
+    """The state dict as the forward pass takes it, made once per call of
+    `clip_flow`. For a bf16 net where autograd records no graph (cuDNN's
+    NHWC tensor-core route): `aligned_params`, with the bf16 layers'
+    weights and biases cast once to bf16, the weights in channels-last
+    memory, as `Conv` would cast them on every call. Anything else:
+    `params` as given. The input is not modified."""
+    if compute_dtype(cfg) != torch.bfloat16 or torch.is_grad_enabled():
+        return dict(params)
+    out = aligned_params(params, cfg)
+    for name in _compute_dtype_layers(cfg):
+        out[name + ".weight"] = out[name + ".weight"].to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        out[name + ".bias"] = out[name + ".bias"].to(torch.bfloat16)
+    return out
 
 
 def init_params(
@@ -176,11 +284,15 @@ def estimate_flow_pairs(params, frames: torch.Tensor, cfg: FlowConfig) -> torch.
 
 
 __all__ = [
+    "ALIGN",
     "PWCNet",
+    "aligned_pad",
+    "aligned_params",
     "build_net",
     "compute_dtype",
     "estimate_flow",
     "estimate_flow_pairs",
     "init_params",
     "pad_to_multiple",
+    "prepare",
 ]

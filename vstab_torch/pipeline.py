@@ -22,7 +22,7 @@ import torch
 
 from vstab_torch.core.config import Config, FlowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
-from vstab_torch.flow import raft
+from vstab_torch.flow import pwcnet, raft
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
 from vstab_torch.core.types import Clip
 from vstab_torch.render.render import pick_max_disp, render_stabilized
@@ -65,21 +65,25 @@ def clip_flow(
     params: Params, frames: torch.Tensor, cfg: Config, pair_chunk: Optional[int] = None
 ) -> torch.Tensor:
     """Consecutive-pair flow over a clip in chunks of `pair_chunk` pairs:
-    [T,H,W,3] -> [T-1,H,W,2], by the network that cfg.flow configures.
+    [T,H,W,3] -> [T-1,H,W,2], by the network that cfg.flow configures, its
+    parameters laid out once a call by the network's `prepare`.
     pair_chunk defaults to `default_pair_chunk`, for RAFT lowered until a
-    chunk's correlation pyramids fit (`raft.pair_chunk`)."""
+    chunk's correlation pyramids fit (`raft.pair_chunk`). The `vstab.flow`
+    span carries `aligned_pad`, the zero channels of PWC-Net's layout."""
     t, h, w, _ = frames.shape
     if pair_chunk is None:
         pair_chunk = default_pair_chunk(h, w)
     if isinstance(cfg.flow, RaftConfig):
         pair_chunk = raft.pair_chunk(h, w, cfg.flow, pair_chunk)
         params, flow_pairs = raft.prepare(params, cfg.flow), raft.estimate_flow_pairs
+        aligned = 0
     else:
-        flow_pairs = estimate_flow_pairs
+        params, flow_pairs = pwcnet.prepare(params, cfg.flow), estimate_flow_pairs
+        aligned = pwcnet.aligned_pad(params, cfg.flow)
     n_pairs = t - 1
     n_chunks = -(-n_pairs // pair_chunk)
     pad = n_chunks * pair_chunk + 1 - t
-    with trace.span("vstab.flow", device=frames.is_cuda):
+    with trace.span("vstab.flow", device=frames.is_cuda, aligned_pad=aligned):
         if pad:  # repeat the last frame: zero flow for the padded pairs
             frames = torch.cat([frames, frames[-1:].expand(pad, *frames.shape[1:])], dim=0)
         flows = []
