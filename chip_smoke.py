@@ -6,7 +6,7 @@
 Run from the root of the repository, on a machine with a CUDA card, `nvcc`
 and the repository's `ckpts/`. It does the following (steps 20 and 21 run
 after step 10; step 4 after step 19, once every path has shown its shapes,
-dtypes and buckets; steps 22 and 12 after it; step 25 after step 8):
+dtypes and buckets; steps 22 and 12 after it; steps 25 and 27 after step 8):
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch and
    CUDA versions; exits non-zero when torch sees no CUDA device;
@@ -196,12 +196,23 @@ dtypes and buckets; steps 22 and 12 after it; step 25 after step 8):
    timed beside it (its NHWC-to-NCHW relayout included: the path's form
    under autograd), with the bound (bytes over the memory rate) and the
    stack's upcast; a `{"heads": ...}` line. No hand-written kernel.
+27. GMFlow (after step 25): `stabilize` with `Config(flow=GmflowConfig())`
+   (weights drawn from the configuration's seed; no checkpoint) on the main
+   clip, launch counters zeroed just before and read just after: two cost
+   volumes a chunk of pairs (12 for six chunks of 8: the local matching at
+   radius 4 and the local propagation at radius 1), no feature warp or
+   lookup, and the render's `vwarp` and `hwarp` launches of one dispatch;
+   frames/s, stage times and peak memory of timed runs. Then the cost
+   volume against its plain version at that path's shape (8x184x320x128,
+   float32) at both radii, within 1e-5, timed beside its plain version,
+   with its bound; its largest error joins the cost volume's row of the
+   `kernels` line, and the GMFlow path's launches its `launches_by_path`.
 
 Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
 launched all four forward kernels; steps 13, 18 and 24 do the same for the
-two kernels inside the network and their backward kernels; step 25 holds
-the RAFT path to its own counts.
+two kernels inside the network and their backward kernels; steps 25 and 27
+hold the RAFT and GMFlow paths to their own counts.
 
 Before its last line it prints `{"kernels": [...]}`, one entry per kernel;
 its last line is `{"ok": true, "device": {...}}`. Any failed check raises,
@@ -1703,6 +1714,77 @@ def raft_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     return {"launches": launches, "row": rows[0]}
 
 
+def gmflow_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
+    """GMFlow as the flow network. `stabilize` with
+    `Config(flow=GmflowConfig())`, weights drawn from the configuration's
+    seed, on the main clip with every launch counter zeroed just before and
+    read just after: two cost-volume launches a chunk of pairs (the local
+    matching at radius 4 and the local propagation at radius 1, both f32 at
+    1/4), no other flow kernel, and the render warps' launches of one
+    dispatch at its bucket; then timed runs (frames/s, stage times, peak
+    memory). Then the cost volume against its plain version at that path's
+    shape (8 pairs at 184x320, 128 channels, f32) at both radii, timed beside
+    the plain version, with its bound. Returns {"launches": the path's,
+    "max_abs_err": the largest error of those checks}."""
+    import vstab_torch
+    from vstab_torch import bench
+    from vstab_torch.core.config import GmflowConfig
+    from vstab_torch.flow import gmflow
+    from vstab_torch.kernels import cost_volume, cost_volume_plain, reset_launches
+    from vstab_torch.pipeline import default_pair_chunk
+
+    cfg = vstab_torch.Config(flow=GmflowConfig())
+    params = vstab_torch.default_params(cfg)
+    t, h, w, _ = frames.shape
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = vstab_torch.stabilize(frames, params, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: n for k, n in _all_launches().items() if not k.endswith("_bwd")}
+    _check_frames("gmflow", out, frames.shape)
+    del out
+    res = bench.measure(frames, params, cfg, iters=3, stages=True)
+    d = res["max_disp"]
+    pairs = gmflow.pair_chunk(h, w, cfg.flow, default_pair_chunk(h, w))
+    chunks = -(-(t - 1) // pairs)
+    radii = [r for _, _, r_match, r_prop in gmflow.SCALES for r in (r_match, r_prop) if r > 0]
+    want = {"cost_volume": len(radii) * chunks, "bilinear_warp": 0, "vwarp": 1,
+            "hwarp": 1 + (2 if d <= 63 else 3), "corr_lookup": 0}
+    _say(f"gmflow: first run {first_s:.2f} s, launches {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"gmflow: launches {launches}, not {want} ({chunks} chunks of {pairs} pairs, "
+                             f"cost volumes of radii {radii} a chunk, one render dispatch at the bucket {d})")
+    _say("gmflow: " + json.dumps({**res, "chunks": chunks, "pairs_a_chunk": pairs, "card": card}))
+    del params
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    hp, wp = -(-h // gmflow.PAD) * gmflow.PAD, -(-w // gmflow.PAD) * gmflow.PAD
+    shape = (pairs, hp // 4, wp // 4, gmflow.C)
+    f1 = torch.randn(shape, generator=g, device="cuda")
+    f2 = torch.randn(shape, generator=g, device="cuda")
+    n, fh, fw, c = shape
+    errs = []
+    for r in radii:
+        k = (2 * r + 1) ** 2
+        row = dict(
+            kernel="cost_volume", path="gmflow_720p", shape=list(shape) + ["float32", f"r={r}"], launches=chunks,
+            max_abs_err=_check(f"cost_volume {shape} float32 r={r}", cost_volume(f1, f2, r),
+                               cost_volume_plain(f1, f2, r)),
+            ms=_time_ms(lambda: cost_volume(f1, f2, r)),
+            plain_ms=_time_ms(lambda: cost_volume_plain(f1, f2, r), iters=5),
+            bytes=(2 * f1.numel() + n * fh * fw * k) * 4, flops=n * fh * fw * k * c * 2, rate=_F32_RATE,
+        )
+        _bound(row, hbm)
+        _say(f"  kernel {json.dumps(row)}")
+        errs.append(row["max_abs_err"])
+    del f1, f2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max(errs)}
+
+
 def _gradient_cross_check(params: dict, cfg, batch: dict, mode: str) -> None:
     """Every parameter's gradient of one training loss through the kernels
     against the same loss with the plain versions swapped in on the card
@@ -2441,6 +2523,7 @@ def main() -> int:
     paths["affine_720p"] = affine_phase(frames, params, card)
     paths["batch_720p"] = batch_phase(frames, params, card)
     raft_run = raft_phase(frames, card, hbm)
+    gmflow_run = gmflow_phase(frames, card, hbm)
     head_phase(card, hbm)
     del frames
     torch.cuda.empty_cache()
@@ -2505,6 +2588,8 @@ def main() -> int:
     rows.update(bwd_rows)
     rows["corr_lookup"] = raft_run["row"]
     held["raft_720p"] = raft_run["launches"]
+    held["gmflow_720p"] = gmflow_run["launches"]
+    rows["cost_volume"]["max_abs_err"] = max(rows["cost_volume"]["max_abs_err"], gmflow_run["max_abs_err"])
     zeros = {k: 0 for k in _all_launches()}
     by_path = {name: {**zeros, **p["launches"]} for name, p in paths.items()}
     by_path.update({name: {**zeros, **launches} for name, launches in held.items()})

@@ -1464,3 +1464,110 @@ def test_aligned_dense_stack_launches_no_channel_padding(clip_720p):
     assert len(taken) == 6
     assert pads["published"] > 0 and pads["aligned"] == 0, pads
     assert float(diff.mean()) < 0.065 / 5
+
+
+def _gmflow_params(device):
+    """GMFlow's seeded weights as the benchmark's configuration draws them
+    (layer-norm gains x 0.1, the trident weight x 0.15; see
+    `tests/test_torch_gmflow.py`)."""
+    from h100bench.reference import gmflow as ref_gmflow
+
+    return ref_gmflow.init_params(0, device, norm_gain=0.1, feature_scale=0.15)
+
+
+def test_gmflow_stabilize_on_the_card_matches_the_cpu(cuda):
+    """`stabilize` with GMFlow through `clip_flow` on the card (cuBLAS, cuDNN,
+    the attention kernels, the cost volume for the local matching and
+    propagation) against the same call on the CPU. In float32 with TF32 off:
+    2 cost-volume launches a chunk, flow within 1e-3 px (ten times the CPU
+    tests' bound against the reference: cuBLAS, cuDNN and the attention
+    kernels sum in other orders), the output within 1e-3 on 99.9% of the
+    values. In bfloat16 (the configuration's precision): the mean gap to the
+    float32 CPU flow under 5% of the mean flow, as the CPU tests hold the
+    bf16 port to the reference."""
+    import vstab_torch
+    from vstab_torch.core import config as tcfg
+    from vstab_torch.pipeline import clip_flow
+
+    cfg = tcfg.Config(flow=tcfg.GmflowConfig(compute_dtype="float32"))
+    params = _gmflow_params("cpu")
+    g = torch.Generator().manual_seed(3)
+    frames = torch.rand((10, 64, 96, 3), generator=g)
+    want_flow = clip_flow(params, frames, cfg)
+    reset_launches()
+    got_flow = clip_flow({k: v.to(cuda) for k, v in params.items()}, frames.to(cuda), cfg)
+    assert KERNELS["cost_volume"].launches == 2 * 2  # 9 pairs: two chunks of 8
+    torch.testing.assert_close(got_flow.cpu(), want_flow, rtol=0, atol=1e-3)
+    want, _ = vstab_torch.stabilize(frames, params, cfg, device="cpu")
+    got, _ = vstab_torch.stabilize(frames, params, cfg)
+    close = ((got.cpu() - want).abs() <= 1e-3).float().mean()
+    assert float(close) >= 0.999
+    bf16 = tcfg.Config(flow=tcfg.GmflowConfig())
+    gap = (clip_flow({k: v.to(cuda) for k, v in params.items()}, frames.to(cuda), bf16).cpu() - want_flow).abs()
+    print(f"gmflow bf16 on the card against f32 on the CPU: mean {float(gap.mean()):.4f} px, "
+          f"max {float(gap.max()):.4f} px, mean flow {float(want_flow.abs().mean()):.4f} px")
+    assert float(gap.mean()) < 0.05 * float(want_flow.abs().mean())
+
+
+# GMFlow's global matching and propagation logits are stated in float32
+# with TF32 off. Held as the timed path makes them: the operands and the
+# logits of the chunk's first pair, caught at `gmflow.logits` inside
+# `estimate_flow_pairs` on a 720p chunk (8 pairs, 92x160 = 14,720 tokens),
+# against a float64 product of the same operands; the reading is the largest
+# error over the RMS of the float64 logits. The bound sits between the path
+# and two lower precisions, each of which the test also reads and requires
+# to fail it: the logits rounded to bfloat16 (every call) and the product
+# under TF32, where an operand is not a bfloat16 value (the propagation's
+# projections always; the matching's features under the float32 compute
+# dtype: TF32 holds bfloat16 features exactly and only changes the order
+# of the sums there). The local matching's and propagation's operands go to
+# the cost volume in float32. The bound is RAFT's pyramid bound.
+GMFLOW_LOGITS_RTOL = 3e-5
+
+
+def _logits_error(got, a, b):
+    want = a.double() @ b.double().T / a.shape[-1] ** 0.5
+    return float((got.double() - want).abs().max()) / float(want.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_gmflow_matching_is_float32_on_the_timed_path(cuda, monkeypatch, compute_dtype):
+    from vstab_torch.core.config import GmflowConfig
+    from vstab_torch.flow import gmflow
+
+    cfg = GmflowConfig(compute_dtype=compute_dtype)
+    params = gmflow.prepare(_gmflow_params(cuda), cfg)
+    real_logits, real_cv, seen, cv_dtypes = gmflow.logits, gmflow.cost_volume, [], []
+
+    def spy(a, b):
+        out = real_logits(a, b)
+        seen.append((a[0].clone(), b[0].clone(), out[0].clone()))
+        return out
+
+    def cv_spy(f1, f2, radius):
+        cv_dtypes.append((f1.dtype, f2.dtype, radius))
+        return real_cv(f1, f2, radius)
+
+    monkeypatch.setattr(gmflow, "logits", spy)
+    monkeypatch.setattr(gmflow, "cost_volume", cv_spy)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    frames = torch.rand((9, 720, 1280, 3), generator=g, device=cuda)
+    gmflow.estimate_flow_pairs(params, frames, cfg)
+    assert [t[2].shape for t in seen] == [(14720, 14720)] * 2  # global matching, then propagation
+    assert all(x.dtype == torch.float32 for t in seen for x in t)
+    assert cv_dtypes == [(torch.float32, torch.float32, 4), (torch.float32, torch.float32, 1)]
+    for call, (a, b, got) in zip(("match", "propagate"), seen):
+        readings = {"path": _logits_error(got, a, b),
+                    "logits_bf16": _logits_error(got.bfloat16(), a, b)}
+        exact_in_tf32 = call == "match" and compute_dtype == "bfloat16"
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            readings["tf32"] = _logits_error(real_logits(a[None], b[None])[0], a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+        print(f"gmflow {call} logits error / rms ({compute_dtype}): {readings}")
+        assert readings["path"] < GMFLOW_LOGITS_RTOL
+        assert readings["logits_bf16"] > GMFLOW_LOGITS_RTOL
+        if not exact_in_tf32:
+            assert readings["tf32"] > GMFLOW_LOGITS_RTOL

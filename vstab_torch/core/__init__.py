@@ -4,6 +4,7 @@ from vstab_torch.core.config import (
     Config,
     DistConfig,
     FlowConfig,
+    GmflowConfig,
     IOConfig,
     RaftConfig,
     RenderConfig,
@@ -15,6 +16,7 @@ __all__ = [
     "Config",
     "DistConfig",
     "FlowConfig",
+    "GmflowConfig",
     "IOConfig",
     "RaftConfig",
     "RenderConfig",

@@ -2,10 +2,10 @@
 defaults, `to_json`/`from_json` and `preset` as `vstab/core/config.py`, so a
 config that the JAX package wrote as JSON loads here unchanged.
 
-`RaftConfig` is the port's own: a second flow network (RAFT) that
-`Config.flow` may hold in place of `FlowConfig`, written to JSON with
-`"net": "raft"` and read back from it. The JAX package has no such network,
-and every JSON it writes loads as before.
+`RaftConfig` and `GmflowConfig` are the port's own: flow networks (RAFT,
+GMFlow) that `Config.flow` may hold in place of `FlowConfig`, written to JSON
+with `"net": "raft"` or `"net": "gmflow"` and read back from it. The JAX
+package has no such network, and every JSON it writes loads as before.
 
 `FlowConfig.kernel_impl` and `RenderConfig.kernel_impl` are kept only for
 that JSON compatibility. The port never reads them: every kernel wrapper
@@ -70,6 +70,25 @@ class RaftConfig:
                 f"RaftConfig: hidden {self.hidden} and context {self.context}; RAFT large "
                 "has 128 of each, and its layers take no other width"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class GmflowConfig:
+    """GMFlow with refinement (Xu et al., CVPR 2022, arXiv 2111.13680;
+    haofeixu/gmflow, checkpoints `gmflow_with_refine_*`): a CNN backbone at
+    1/8 and 1/4, a 6-block Swin-style transformer at each scale, global
+    matching and propagation at 1/8, local matching and propagation at 1/4,
+    convex upsampling x4 (`vstab_torch/flow/gmflow.py`, which holds the
+    published settings: its layers take no others)."""
+
+    net: str = "gmflow"
+    # Backbone, transformer and upsampler convolutions; the matchings,
+    # propagations, flow and convex upsampling stay float32.
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.net != "gmflow":
+            raise ValueError(f"GmflowConfig.net must be 'gmflow', got {self.net!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +183,7 @@ class IOConfig:
 class Config:
     """Top-level config: the one jit-static argument of vstab.pipeline."""
 
-    flow: Union[FlowConfig, RaftConfig] = FlowConfig()
+    flow: Union[FlowConfig, RaftConfig, GmflowConfig] = FlowConfig()
     smooth: SmoothConfig = SmoothConfig()
     render: RenderConfig = RenderConfig()
     dist: DistConfig = DistConfig()
@@ -191,8 +210,9 @@ class Config:
             return cls(**kw)
 
         flow = d.get("flow", {})
+        nets = {"raft": RaftConfig, "gmflow": GmflowConfig}
         return Config(
-            flow=_mk(RaftConfig if flow.get("net") == "raft" else FlowConfig, flow),
+            flow=_mk(nets.get(flow.get("net"), FlowConfig), flow),
             smooth=_mk(SmoothConfig, d.get("smooth", {})),
             render=_mk(RenderConfig, d.get("render", {})),
             dist=_mk(DistConfig, d.get("dist", {})),
@@ -222,6 +242,7 @@ def preset(name: str) -> Config:
 __all__ = [
     "FlowConfig",
     "RaftConfig",
+    "GmflowConfig",
     "SmoothConfig",
     "RenderConfig",
     "DistConfig",

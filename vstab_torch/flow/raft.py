@@ -160,19 +160,22 @@ def init_params(
 def prepare(params: Mapping[str, torch.Tensor], cfg: RaftConfig) -> Dict[str, torch.Tensor]:
     """The state dict as the forward pass takes it, cast once per call of
     `clip_flow`: convolution weights and biases in the compute dtype (the
-    weights in channels-last memory), norms and everything else as given."""
+    weights in channels-last memory), norms and everything else as given.
+    GMFlow's `prepare` casts its convolutions here too."""
     dtype = compute_dtype(cfg)
     out = dict(params)
     for k, v in params.items():
-        if v.dim() == 4:  # a convolution's weight, and its bias
+        if v.dim() == 4:  # a convolution's weight, and its bias where it has one
             out[k] = v.to(dtype).contiguous(memory_format=_CL)
             bias = k[: -len("weight")] + "bias"
-            out[bias] = params[bias].to(dtype)
+            if bias in params:
+                out[bias] = params[bias].to(dtype)
     return out
 
 
 def _conv(p, name: str, x: torch.Tensor, stride: int = 1, padding=0) -> torch.Tensor:
-    return F.conv2d(x, p[name + ".weight"], p[name + ".bias"], stride=stride, padding=padding)
+    """Convolution `name`, with its bias where the state dict has one."""
+    return F.conv2d(x, p[name + ".weight"], p.get(name + ".bias"), stride=stride, padding=padding)
 
 
 def _norm_apply(p, name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -185,19 +188,24 @@ def _norm_apply(p, name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _residual(p, name: str, x: torch.Tensor, kind: str, stride: int) -> torch.Tensor:
+    """`ResidualBlock` `name` of RAFT or GMFlow: its convolutions with or
+    without bias, and the 1x1 shortcut wherever the state dict has one (RAFT:
+    where the stride is not 1; GMFlow: also where the widths differ)."""
     y = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, stride, 1), kind))
     y = F.relu(_norm_apply(p, name + ".norm2", _conv(p, name + ".conv2", y, 1, 1), kind))
-    if stride != 1:
+    if name + ".downsample.0.weight" in p:
         x = _norm_apply(p, name + ".norm3", _conv(p, name + ".downsample.0", x, stride), kind)
     return F.relu(x + y)
 
 
-def encode(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
+def encode(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, kind: str,
+           strides: Tuple[int, int, int] = (1, 2, 2)) -> torch.Tensor:
     """`BasicEncoder` `name` ('fnet' or 'cnet') on images [N,3,H,W] in
     [-1, 1] -> [N,C,H/8,W/8]: instance norm (per image, affine-free) or
-    batch norm in eval mode."""
+    batch norm in eval mode. `strides` are the three layers' (GMFlow's
+    `CNNEncoder` at two scales: (1, 2, 1), to 1/4)."""
     x = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, 2, 3), kind))
-    for layer, stride in (("layer1", 1), ("layer2", 2), ("layer3", 2)):
+    for layer, stride in zip(("layer1", "layer2", "layer3"), strides):
         x = _residual(p, f"{name}.{layer}.0", x, kind, stride)
         x = _residual(p, f"{name}.{layer}.1", x, kind, 1)
     return _conv(p, name + ".conv2", x)
@@ -248,24 +256,35 @@ def update(p: Mapping[str, torch.Tensor], net: torch.Tensor, inp: torch.Tensor,
     return h, delta.float()
 
 
-def upsample(p: Mapping[str, torch.Tensor], net: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Convex upsampling x8 of flow [N,2,H,W] with the mask of the hidden
-    state: pixel (8y+i, 8x+j) is the softmax-weighted sum over the 3x3
-    neighbourhood of 8 * flow, weights from mask channel k*64 + i*8 + j."""
+def convex_upsample(p: Mapping[str, torch.Tensor], head: str, x: torch.Tensor, flow: torch.Tensor,
+                    factor: int, mask_scale: float = 1.0) -> torch.Tensor:
+    """Convex upsampling x`factor` of flow [N,2,H,W] float32 with the mask
+    that the head `head` (conv3x3, ReLU, conv1x1 to 9 factor^2 channels)
+    computes from x, scaled by `mask_scale`: pixel (f y + i, f x + j) is the
+    softmax-weighted sum over the 3x3 neighbourhood of factor * flow, weights
+    from mask channel k f^2 + i f + j. The softmax and the sum in float32."""
     n, _, h, w = flow.shape
-    mask = 0.25 * _conv(p, "update_block.mask.2",
-                        F.relu(_conv(p, "update_block.mask.0", net, padding=1)))
-    mask = torch.softmax(mask.float().reshape(n, 1, 9, 8, 8, h, w), dim=2)
-    up = F.unfold(8.0 * flow, [3, 3], padding=1).view(n, 2, 9, 1, 1, h, w)
-    up = torch.sum(mask * up, dim=2)  # [N,2,8,8,H,W]
-    return up.permute(0, 1, 4, 2, 5, 3).reshape(n, 2, 8 * h, 8 * w)
+    mask = _conv(p, head + ".2", F.relu(_conv(p, head + ".0", x, padding=1)))
+    if mask_scale != 1.0:
+        mask = mask_scale * mask
+    mask = torch.softmax(mask.float().reshape(n, 1, 9, factor, factor, h, w), dim=2)
+    up = F.unfold(float(factor) * flow, [3, 3], padding=1).view(n, 2, 9, 1, 1, h, w)
+    up = torch.sum(mask * up, dim=2)  # [N,2,f,f,H,W]
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(n, 2, factor * h, factor * w)
 
 
-def _pad8(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
-    """RAFT's `InputPadder` (sintel mode): [N,C,H,W] edge-padded to multiples
-    of 8, split evenly between the two sides."""
+def upsample(p: Mapping[str, torch.Tensor], net: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """RAFT's convex upsampling x8 of flow [N,2,H,W] with the mask of the
+    hidden state, scaled by 0.25 (RAFT's `update_block.mask`)."""
+    return convex_upsample(p, "update_block.mask", net, flow, 8, 0.25)
+
+
+def pad_to(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
+    """RAFT's and GMFlow's `InputPadder` (sintel mode): [N,C,H,W]
+    edge-padded to multiples of `multiple` (RAFT 8, GMFlow 32), split evenly
+    between the two sides; the pads (left, right, top, bottom)."""
     h, w = x.shape[-2:]
-    ph, pw = (-h) % 8, (-w) % 8
+    ph, pw = (-h) % multiple, (-w) % multiple
     pads = (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
     if ph or pw:
         x = F.pad(x, pads, mode="replicate").contiguous(memory_format=_CL)
@@ -282,7 +301,7 @@ def estimate_flow_pairs(p: Mapping[str, torch.Tensor], frames: torch.Tensor,
     pin_full_f32()
     dtype, dev = compute_dtype(cfg), frames.is_cuda
     t, h, w, _ = frames.shape
-    x, pads = _pad8((2.0 * frames.float() - 1.0).permute(0, 3, 1, 2).to(dtype))
+    x, pads = pad_to((2.0 * frames.float() - 1.0).permute(0, 3, 1, 2).to(dtype), 8)
     with trace.span("vstab.flow.raft.encode", device=dev):
         fmap = encode(p, "fnet", x, "instance")
         ctx = encode(p, "cnet", x[:-1], "batch")
@@ -334,10 +353,12 @@ def pair_chunk(h: int, w: int, cfg: RaftConfig, chunk: int) -> int:
 
 __all__ = [
     "RAFT",
+    "convex_upsample",
     "corr_pyramid",
     "encode",
     "estimate_flow_pairs",
     "init_params",
+    "pad_to",
     "pair_chunk",
     "prepare",
     "pyramid_bytes",

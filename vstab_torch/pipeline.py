@@ -10,7 +10,8 @@ plain torch versions do.
 
 `params` is the port's state dict of the flow network (`default_params`):
 PWC-Net's for a `FlowConfig`, RAFT's (`vstab_torch.flow.raft`) for a
-`RaftConfig` in `cfg.flow`.
+`RaftConfig`, GMFlow's (`vstab_torch.flow.gmflow`) for a `GmflowConfig` in
+`cfg.flow`.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from vstab_torch.core.config import Config, FlowConfig, RaftConfig
+from vstab_torch.core.config import Config, FlowConfig, GmflowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
-from vstab_torch.flow import pwcnet, raft
+from vstab_torch.flow import gmflow, pwcnet, raft
 from vstab_torch.flow.pwcnet import PWCNet, estimate_flow_pairs
 from vstab_torch.core.types import Clip
 from vstab_torch.render.render import pick_max_disp, render_stabilized
@@ -68,14 +69,16 @@ def clip_flow(
     [T,H,W,3] -> [T-1,H,W,2], by the network that cfg.flow configures, its
     parameters laid out once a call by the network's `prepare`.
     pair_chunk defaults to `default_pair_chunk`, for RAFT lowered until a
-    chunk's correlation pyramids fit (`raft.pair_chunk`). The `vstab.flow`
+    chunk's correlation pyramids fit (`raft.pair_chunk`), for GMFlow until
+    its global-matching logits fit (`gmflow.pair_chunk`). The `vstab.flow`
     span carries `aligned_pad`, the zero channels of PWC-Net's layout."""
     t, h, w, _ = frames.shape
     if pair_chunk is None:
         pair_chunk = default_pair_chunk(h, w)
-    if isinstance(cfg.flow, RaftConfig):
-        pair_chunk = raft.pair_chunk(h, w, cfg.flow, pair_chunk)
-        params, flow_pairs = raft.prepare(params, cfg.flow), raft.estimate_flow_pairs
+    if isinstance(cfg.flow, (RaftConfig, GmflowConfig)):
+        net = raft if isinstance(cfg.flow, RaftConfig) else gmflow
+        pair_chunk = net.pair_chunk(h, w, cfg.flow, pair_chunk)
+        params, flow_pairs = net.prepare(params, cfg.flow), net.estimate_flow_pairs
         aligned = 0
     else:
         params, flow_pairs = pwcnet.prepare(params, cfg.flow), estimate_flow_pairs
@@ -227,11 +230,14 @@ def default_params(
 ) -> Dict[str, torch.Tensor]:
     """Flow-net state dict on `device` (CUDA by default): the newest
     checkpoint of ckpt_dir if it fits cfg.flow, else a fresh init from the
-    seed (torch's generator: not the JAX package's numbers). RAFT has no
-    checkpoint in the repository: its state dict is drawn from the seed."""
+    seed (torch's generator: not the JAX package's numbers). RAFT and GMFlow
+    have no checkpoint in the repository: their state dicts are drawn from
+    the seed."""
     dev = resolve_device(device)
     if isinstance(cfg.flow, RaftConfig):
         return raft.init_params(cfg.seed if seed is None else seed, cfg.flow, dev)
+    if isinstance(cfg.flow, GmflowConfig):
+        return gmflow.init_params(cfg.seed if seed is None else seed, dev)
     ckpt = latest_checkpoint(ckpt_dir)
     if ckpt is not None:
         params = params_from_jax(load_params(ckpt))
