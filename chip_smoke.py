@@ -28,10 +28,11 @@ dtypes and buckets; steps 22 and 12 after it; steps 25 and 27 after step 8):
    its element kernel; the render warps at the bucket the main path chose,
    `hwarp` with 1 and 3 channels and at a width whose rows are not 16-byte
    aligned, `vwarp` on a per-pixel random field and on a smooth field of the
-   main path's kind), and times kernel, plain version and (for the warps)
-   `F.grid_sample` as a yardstick, with CUDA events; then prints, for each
-   kernel, the sum over its shapes of launches x ms beside the device time
-   the profiler gave it in the run;
+   main path's kind; both in edge mode on the crop zoom's fields, frame and
+   mask, at the dispatch's own size), and times kernel, plain version and
+   (for the warps) `F.grid_sample` as a yardstick, with CUDA events; then
+   prints, for each kernel, the sum over its shapes of launches x ms beside
+   the device time the profiler gave it in the run;
 5. checks the output: finite, [48,720,1280,3], and on a small f32 clip the
    card's output agrees with the CPU run of the plain versions (which the
    CPU tests hold against the JAX package);
@@ -180,11 +181,12 @@ dtypes and buckets; steps 22 and 12 after it; steps 25 and 27 after step 8):
    (weights drawn from the configuration's seed; no checkpoint) on the main
    clip, launch counters zeroed just before and read just after: 20
    correlation lookups a chunk of pairs (120 for six chunks of 8), no
-   cost volume or feature warp, `vwarp` once and `hwarp` 3 or 4 times for
-   the one render dispatch at its bucket; frames/s, stage times and peak
-   memory of timed runs. Then the lookup kernel against its plain version at
-   that path's shape (8 pairs at 90x160, levels down to 11x20, flow of a
-   few pixels) in bfloat16 and float32, within 2e-4 (and one bf16 ulp),
+   cost volume or feature warp, `vwarp` 3 times and `hwarp` 5 or 6 times
+   for the one render dispatch at its bucket (the crop zoom's 2 of each);
+   frames/s, stage times and peak memory of timed runs. Then the lookup
+   kernel against its plain version at that path's shape (8 pairs at
+   90x160, levels down to 11x20, flow of a few pixels) in bfloat16 and
+   float32, within 2e-4 (and one bf16 ulp),
    timed beside its plain version, with its bound from its inputs (bytes
    over the memory rate); its row, with the RAFT path's launches, joins the
    `kernels` line.
@@ -491,19 +493,45 @@ def kernel_phase(hbm: float, paths: dict):
 
     # A render dispatch of n frames launches vwarp and hwarp once on the
     # frame, hwarp the other times on a field (`warp_twopass`: twice up to the
-    # bucket 63, three times above): four rows a path and bucket (the random
+    # bucket 63, three times above), then the crop zoom's vwarp and hwarp on
+    # the frame and on the mask: four rows a path and bucket (the random
     # vwarp row only on the whole-clip path), each checked in both modes on
-    # the field it is timed on.
+    # the field it is timed on, and the zoom's four rows.
     def render_rows(path):
         renders, launches = paths[path].get("renders", {}), paths[path]["launches"]
         on_fields = {d: 2 if d <= 63 else 3 for d in renders}
-        want = (sum(renders.values()), sum(k * (1 + on_fields[d]) for d, k in renders.items()))
+        want = (sum(3 * k for k in renders.values()), sum(k * (3 + on_fields[d]) for d, k in renders.items()))
         if (launches["vwarp"], launches["hwarp"]) != want:
             raise AssertionError(
                 f"{path}: render dispatches by bucket {renders} launched vwarp {launches['vwarp']} and "
                 f"hwarp {launches['hwarp']} times, not {want[0]} and {want[1]}")
         for d, dispatches in renders.items():
             render_rows_at(path, d, dispatches, dispatches * on_fields[d])
+        if renders:
+            zoom_rows(path, sum(renders.values()))
+
+    # The crop zoom at the configurations' 0.9: vwarp then hwarp in edge mode
+    # on the frame (3 channels) and the mask (1) at the dispatch's own size,
+    # on `zoom_fields`, checked against the plain versions.
+    def zoom_rows(path, dispatches):
+        from vstab_torch.render.render import zoom_fields
+
+        n, (h, w) = paths[path]["n"], paths[path]["hw"]
+        fy, fx = zoom_fields((n, h, w), torch.tensor(0.9, device="cuda"))
+        for c in (3, 1):
+            x = torch.rand((n, h, w, c), generator=g, device="cuda")
+            tmp = vwarp(x, fy, float(h), "edge")
+            for name, kern, plain, img, f, d in (("vwarp", vwarp, vwarp_plain, x, fy, float(h)),
+                                                 ("hwarp", hwarp, hwarp_plain, tmp, fx, float(w))):
+                per_shape.append(dict(
+                    kernel=name, path=path, shape=[n, h, w, c, "zoom 0.9 edge"], field="zoom", launches=dispatches,
+                    max_abs_err=_check(f"{name} {(n, h, w, c)} zoom", kern(img, f, d, "edge"), plain(img, f, d, "edge")),
+                    ms=_time_ms(lambda: kern(img, f, d, "edge")),
+                    plain_ms=_time_ms(lambda: plain(img, f, d, "edge"), iters=5),
+                    bytes=4 * (2 * img.numel() + f.numel()), flops=None, library_ms=None,
+                ))
+            del x, tmp
+        del fy, fx
 
     def render_rows_at(path, d, dispatches, on_field):
         n, (h, w) = paths[path]["n"], paths[path]["hw"]
@@ -1669,7 +1697,7 @@ def raft_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     d = res["max_disp"]
     pairs = raft.pair_chunk(h, w, cfg.flow, default_pair_chunk(h, w))
     chunks = -(-(t - 1) // pairs)
-    want = {"cost_volume": 0, "bilinear_warp": 0, "vwarp": 1, "hwarp": 1 + (2 if d <= 63 else 3),
+    want = {"cost_volume": 0, "bilinear_warp": 0, "vwarp": 3, "hwarp": 3 + (2 if d <= 63 else 3),
             "corr_lookup": cfg.flow.iters * chunks}
     _say(f"raft: first run {first_s:.2f} s, launches {json.dumps(launches)}")
     if launches != want:
@@ -1750,8 +1778,8 @@ def gmflow_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     pairs = gmflow.pair_chunk(h, w, cfg.flow, default_pair_chunk(h, w))
     chunks = -(-(t - 1) // pairs)
     radii = [r for _, _, r_match, r_prop in gmflow.SCALES for r in (r_match, r_prop) if r > 0]
-    want = {"cost_volume": len(radii) * chunks, "bilinear_warp": 0, "vwarp": 1,
-            "hwarp": 1 + (2 if d <= 63 else 3), "corr_lookup": 0}
+    want = {"cost_volume": len(radii) * chunks, "bilinear_warp": 0, "vwarp": 3,
+            "hwarp": 3 + (2 if d <= 63 else 3), "corr_lookup": 0}
     _say(f"gmflow: first run {first_s:.2f} s, launches {json.dumps(launches)}")
     if launches != want:
         raise AssertionError(f"gmflow: launches {launches}, not {want} ({chunks} chunks of {pairs} pairs, "

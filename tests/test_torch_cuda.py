@@ -404,6 +404,72 @@ def test_warp_twopass_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
+# The render's crop zoom: a vertical then a horizontal two-tap pass on the
+# 1-D kernels, held at the configurations' 0.9 crop against the dense tent
+# product it replaced (full f32, TF32 off) at the whole clip's shapes of 720p
+# and 4K. Bound: one step of the f32 source coordinate at 3840 columns, the
+# 4K tests' 1e-4 + 2^-12. The validity mask of a shaken 720p clip keeps its
+# `> 0.999` decision on all but 0.1 per mille of its pixels.
+@pytest.mark.parametrize("shape", [(48, 720, 1280, 3), (48, 720, 1280, 1), (2, 2160, 3840, 3)])
+def test_zoom_resample_on_the_card_matches_the_tent_product(cuda, shape):
+    from torch_zoom_tent import tent_zoom
+
+    from vstab_torch.render.render import zoom_resample
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    img = torch.rand(shape, generator=g, device=cuda)
+    s = torch.tensor(0.9, device=cuda)
+    reset_launches()
+    got = zoom_resample(img, s)
+    assert KERNELS["vwarp"].launches == 1 and KERNELS["hwarp"].launches == 1
+    torch.testing.assert_close(got, tent_zoom(img, s), rtol=0, atol=1e-4 + 2.0**-12)
+
+
+def test_zoomed_mask_on_the_card_keeps_the_tent_products_validity(cuda):
+    from torch_zoom_tent import tent_zoom
+
+    from vstab_torch.kernels import twopass_validity
+    from vstab_torch.render.render import affine_to_flow, zoom_resample
+
+    t, h, w = 48, 720, 1280
+    g = torch.Generator(device="cuda").manual_seed(24)
+    ang = (torch.rand(t, generator=g, device=cuda) - 0.5) * 0.02
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    shift = (torch.rand((t, 2), generator=g, device=cuda) - 0.5) * 160.0
+    transforms = torch.stack(
+        [torch.stack([cos, -sin, shift[:, 0]], -1), torch.stack([sin, cos, shift[:, 1]], -1)], 1
+    )
+    mask = twopass_validity((h, w), affine_to_flow(transforms, h, w), 63)[..., None]
+    s = torch.tensor(0.9, device=cuda)
+    got = zoom_resample(mask, s) > 0.999
+    want = tent_zoom(mask, s) > 0.999
+    differ = int((got != want).sum())
+    print(f"zoomed 48x720x1280 mask: {differ} of {want.numel()} decisions differ from the tent product's "
+          f"({int((~want).sum())} pixels invalid)")
+    assert 0 < int((~want).sum()) and differ <= 1e-4 * want.numel()
+
+
+# A render call launches vwarp once and hwarp three times (`warp_twopass` at
+# d=16), and the crop zoom two more of each on the frame and the mask.
+@pytest.mark.parametrize("crop_mode", ["fixed", "auto", "none"])
+def test_render_launches_the_zoom_passes(cuda, crop_mode):
+    from vstab_torch.core.config import RenderConfig
+    from vstab_torch.render.render import render_stabilized
+    from vstab_torch.utils import trace
+
+    frames = torch.rand((3, 40, 56, 3), device=cuda)
+    flow = torch.full((3, 40, 56, 2), 1.5, device=cuda)
+    zoom = 0 if crop_mode == "none" else 2
+    reset_launches()
+    trace.clear()
+    with trace.recording():
+        render_stabilized(frames, flow, RenderConfig(crop_mode=crop_mode), max_disp=16)
+    (rec,) = [r for r in trace.records() if r["name"] == "vstab.render"]
+    trace.clear()
+    assert (KERNELS["vwarp"].launches, KERNELS["hwarp"].launches) == (1 + zoom, 3 + zoom)
+    assert rec["attrs"]["zoom_passes"] == 2 * zoom
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda):
     x = torch.zeros((1, 8, 8, 4), device=cuda)
     with pytest.raises(ValueError):

@@ -1,9 +1,9 @@
 """vstab_torch renderer held against the JAX package on the CPU.
 
-Tolerances: 1e-5 for resampling matrices, 1e-5 relative for dense flows
-(the two resizers weight the same taps, rounded apart), 1e-4 for rendered
-frames (the two-pass warp's fixed-point iterates and the zoom matmuls sum
-f32 in another order).
+Tolerances: 1e-5 for resampling matrices and the zoom, 1e-5 relative for
+dense flows (the two resizers weight the same taps, rounded apart), 1e-4 for
+rendered frames (the two-pass warp's fixed-point iterates and the zoom's
+source coordinates round f32 in another order).
 """
 
 import logging
@@ -17,6 +17,7 @@ from vstab.core.config import RenderConfig as RenderRef
 from vstab.render import render as ref
 from vstab_torch.core.config import RenderConfig
 from vstab_torch.render import render as port
+from torch_zoom_tent import tent_zoom
 
 torch.set_num_threads(1)
 
@@ -77,6 +78,49 @@ def test_zoom_and_auto_scale_match_reference():
         port._auto_scale_per_frame(torch.from_numpy(flow)).numpy(),
         np.asarray(ref._auto_scale_per_frame(jnp.asarray(flow))), rtol=0, atol=1e-6,
     )
+
+
+# The zoom's two-tap passes against the dense tent product they replace: the
+# same taps and weights, apart from the f32 rounding of the source coordinate.
+@pytest.mark.parametrize("scale", [1.0, 0.9, 0.62, 0.5])
+@pytest.mark.parametrize("shape", [(2, 30, 44, 3), (1, 37, 53, 1), (3, 64, 96, 3)])
+def test_zoom_resample_matches_the_tent_product(shape, scale):
+    img = torch.from_numpy(np.random.default_rng(4).random(shape).astype(np.float32))
+    s = torch.tensor(scale, dtype=torch.float32)
+    np.testing.assert_allclose(
+        port.zoom_resample(img, s).numpy(), tent_zoom(img, s).numpy(), rtol=0, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.9, 0.62, 0.5])
+def test_zoomed_mask_keeps_the_tent_products_validity(scale):
+    """A validity mask with invalid border rows and columns and a few invalid
+    pixels inside: the render's `> 0.999` test on the zoomed mask decides
+    every pixel as it does on the tent product's."""
+    t, h, w = 2, 45, 67
+    mask = torch.ones((t, h, w, 1))
+    mask[0, :3], mask[0, :, -5:], mask[1, -2:], mask[1, :, :4] = 0.0, 0.0, 0.0, 0.0
+    mask[:, 20, 30] = 0.0
+    s = torch.tensor(scale, dtype=torch.float32)
+    fields = port.zoom_fields((t, h, w), s)
+    got = port.zoom_resample(mask, s, fields) > 0.999
+    want = tent_zoom(mask, s) > 0.999
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.parametrize("crop_mode", ["fixed", "auto", "none"])
+def test_render_span_counts_the_zoom_passes(crop_mode):
+    from vstab_torch.utils import trace
+
+    frames = torch.rand((2, 24, 32, 3))
+    flow = torch.full((2, 24, 32, 2), 1.5)
+    trace.clear()
+    with trace.recording():
+        port.render_stabilized(frames, flow, RenderConfig(crop_mode=crop_mode))
+    (rec,) = [r for r in trace.records() if r["name"] == "vstab.render"]
+    trace.clear()
+    assert rec["attrs"]["zoom_passes"] == (0 if crop_mode == "none" else 4)
 
 
 @pytest.mark.parametrize("crop_mode", ["fixed", "auto", "none"])

@@ -5,17 +5,17 @@ grid displacement fields [T,GH,GW,2] (sparse-LS path), turns them into a
 dense backward-warp flow, samples the frames and applies the crop policy.
 
 Frames are sampled once by `warp_twopass` (mean shift plus the vertical and
-horizontal 1D kernels), the crop zoom is a separable resample by two tent
-matrices (f32 matmuls, TF32 off), and pixels whose ideal sample left the
-frame are filled with `border_value` through the validity mask of the exact
-flow.
+horizontal 1D kernels), the crop zoom is a vertical then a horizontal
+two-tap pass on the same 1D kernels in edge mode (f32), and pixels whose
+ideal sample left the frame are filled with `border_value` through the
+validity mask of the exact flow.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
-from typing import Iterable, Iterator, Optional, Union
+from typing import Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from vstab_torch.core.config import RenderConfig
 from vstab_torch.core.precision import einsum_f32
 from vstab_torch.core.types import apply_affine
-from vstab_torch.kernels import twopass_validity, warp_twopass
+from vstab_torch.kernels import hwarp, twopass_validity, vwarp, warp_twopass
 from vstab_torch.utils import trace
 
 log = logging.getLogger("vstab_torch.render")
@@ -53,23 +53,37 @@ def grid_to_flow(disp: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _tent_matrix(n: int, scale: torch.Tensor) -> torch.Tensor:
-    """[n,n] row-stochastic bilinear sampling matrix for the centered scale
-    map src(i) = c + scale*(i-c)."""
+def _zoom_disp(n: int, scale: torch.Tensor) -> torch.Tensor:
+    """[n] f32 displacements src(i) - i of the centered scale map
+    src(i) = clamp(c + scale*(i-c), 0, n-1)."""
     i = torch.arange(n, dtype=torch.float32, device=scale.device)
     ctr = (n - 1) / 2.0
-    src = torch.clamp(ctr + scale.float() * (i - ctr), 0.0, n - 1.0)
-    return torch.clamp(1.0 - torch.abs(src[:, None] - i[None, :]), min=0.0)
+    return torch.clamp(ctr + scale.float() * (i - ctr), 0.0, n - 1.0) - i
 
 
-def zoom_resample(img: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Centered zoom-in resample out(p) = img(c + scale*(p-c)) for [T,H,W,C],
-    as two separable tent matmuls in full f32."""
-    t, h, w, c = img.shape
-    wy = _tent_matrix(h, scale)
-    wx = _tent_matrix(w, scale)
-    tmp = einsum_f32("yr,trwc->tywc", wy, img)
-    return einsum_f32("xq,tyqc->tyxc", wx, tmp)
+def zoom_fields(shape_thw, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The zoom's displacement fields src(i) - i for frames [T,H,W,...]:
+    (vertical [T,H,W], constant along x; horizontal [T,H,W], constant along
+    y), contiguous, made on the scale's device without reading it back."""
+    t, h, w = shape_thw
+    fy = _zoom_disp(h, scale)[None, :, None].expand(t, h, w).contiguous()
+    fx = _zoom_disp(w, scale)[None, None, :].expand(t, h, w).contiguous()
+    return fy, fx
+
+
+def zoom_resample(
+    img: torch.Tensor, scale: torch.Tensor,
+    fields: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Centered zoom-in resample out(p) = img(c + scale*(p-c)) for [T,H,W,C]:
+    the bilinear resample as a vertical then a horizontal two-tap pass in
+    edge mode (the clamped source's taps land on the edge pixel), in f32.
+    `fields` (`zoom_fields(img.shape[:3], scale)`) lets images of one shape
+    share them; the bound on |field| is the axis length, so it never clips."""
+    t, h, w, _ = img.shape
+    fy, fx = zoom_fields((t, h, w), scale) if fields is None else fields
+    tmp = vwarp(img.contiguous(), fy, max_disp=float(h), mode="edge")
+    return hwarp(tmp, fx, max_disp=float(w), mode="edge")
 
 
 def _auto_scale_per_frame(flow: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
@@ -190,18 +204,21 @@ def render_stabilized(
     residual_disp_bound / pick_max_disp."""
     t, h, w, c = frames.shape
     d = cfg.max_residual_disp if max_disp is None else max_disp
-    with trace.span("vstab.render", device=frames.is_cuda):
+    with trace.span("vstab.render", device=frames.is_cuda) as s:
         warped = warp_twopass(frames, flow, max_disp=d)
         mask = twopass_validity((h, w), flow, d)[..., None]
         if cfg.crop_mode == "none":
+            s.set(zoom_passes=0)
             return warped * mask + cfg.border_value * (1.0 - mask)
         if scale is None:
             scale = fixed_crop_scale(cfg, frames.device)
         if scale is None:
             scale = _auto_scale_per_frame(flow).min()
         scale = torch.as_tensor(scale, dtype=torch.float32, device=frames.device)
-        out = zoom_resample(warped, scale)
-        maskz = zoom_resample(mask, scale)
+        fields = zoom_fields((t, h, w), scale)
+        out = zoom_resample(warped, scale, fields)
+        maskz = zoom_resample(mask, scale, fields)
+        s.set(zoom_passes=4)
         valid = (maskz > 0.999).to(out.dtype)
         return out * valid + cfg.border_value * (1.0 - valid)
 
@@ -226,5 +243,6 @@ __all__ = [
     "render_grid",
     "render_stabilized",
     "residual_disp_bound",
+    "zoom_fields",
     "zoom_resample",
 ]
