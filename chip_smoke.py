@@ -209,6 +209,15 @@ dtypes and buckets; steps 22 and 12 after it; steps 25 and 27 after step 8):
    float32) at both radii, within 1e-5, timed beside its plain version,
    with its bound; its largest error joins the cost volume's row of the
    `kernels` line, and the GMFlow path's launches its `launches_by_path`.
+28. RAFT training (after step 25): `train_fast` with a `RaftConfig` for 3
+   steps of batch 10 at 368x496 (the `train_raft_chairs` cell's shape),
+   launch counters zeroed just before and read just after: 12 lookups and
+   12 lookup backwards a step and the batch maker's 4 warps, nothing else.
+   Then the lookup's backward against autograd of the plain version at that
+   step's shape (10x46x62, levels to 5x7, r=4) with coordinates drifted up
+   to +-40 px and +-3 px, within 2e-4, timed beside the plain version's
+   autograd, with its bound; its row joins the `kernels` line, with the
+   training run's launches.
 
 Every path of steps 3, 7 to 10, 15 to 17, 19 to 21 and 23 is driven with the
 launch counters zeroed just before and read just after, and must have
@@ -1742,6 +1751,91 @@ def raft_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     return {"launches": launches, "row": rows[0]}
 
 
+# RAFT's training run at the `train_raft_chairs` cell's shape.
+_RAFT_TRAIN_HW, _RAFT_TRAIN_BATCH, _RAFT_TRAIN_STEPS = (368, 496), 10, 3
+
+
+def raft_train_phase(card: str, hbm: float) -> dict:
+    """RAFT's training (step 28) through the trainer's entry: `train_fast`
+    with a `RaftConfig` (weights from `raft.init_params`, the chairs recipe)
+    for 3 steps of batch 10 at 368x496 with every launch counter zeroed just
+    before and read just after: 12 lookups and 12 lookup backwards a step,
+    the batch maker's 4 warps a step, no PWC-Net kernel. Then the lookup's
+    backward against autograd of the plain version at that step's shape (10
+    pairs at 46x62, levels to 5x7, r=4) with coordinates drifted up to +-40
+    px (windows partly or wholly outside a level) and up to +-3 px (the
+    step's regime; timed, beside autograd of the plain version, with its
+    bound: bytes, `h100bench/counts/raft_train.py`, over the memory rate).
+    Returns {"launches": the run's, "row": the backward's row}."""
+    from h100bench.counts.raft_train import lookup_bwd_bytes
+    from vstab_torch.core.config import RaftConfig
+    from vstab_torch.flow import train as T
+    from vstab_torch.kernels import corr_lookup_backward, corr_lookup_plain, reset_launches
+
+    cfg = RaftConfig(iters=12, compute_dtype="float32")
+    steps = _RAFT_TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = T.train_fast(cfg, steps=steps, batch_size=_RAFT_TRAIN_BATCH, hw=_RAFT_TRAIN_HW, lr=4e-4, seed=0,
+                           scan_len=1, n_scenes=8, max_disp=32.0, ckpt_dir=None, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    want = {k: 0 for k in launches}
+    want.update({"bilinear_warp": 4 * steps, "corr_lookup": cfg.iters * steps, "corr_lookup_bwd": cfg.iters * steps})
+    _say("raft train: " + json.dumps({
+        "steps": steps, "batch": _RAFT_TRAIN_BATCH, "hw": _RAFT_TRAIN_HW, "run_s_with_setup": wall,
+        "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}))
+    if launches != want:
+        raise AssertionError(f"raft train: launches {launches}, not {want} ({steps} steps of {cfg.iters} iterations)")
+    if not all(bool(torch.isfinite(v).all()) for v in trained.values() if v.is_floating_point()):
+        raise AssertionError("raft train: a trained tensor is not finite")
+    del trained
+    torch.cuda.empty_cache()
+
+    n, r = _RAFT_TRAIN_BATCH, cfg.corr_radius
+    h8, w8 = _RAFT_TRAIN_HW[0] // 8, _RAFT_TRAIN_HW[1] // 8
+    g = torch.Generator(device="cuda").manual_seed(25)
+    level = torch.randn((n * h8 * w8, 1, h8, w8), generator=g, device="cuda")
+    pyr = [level]
+    for _ in range(cfg.corr_levels - 1):
+        pyr.append(F.avg_pool2d(pyr[-1], 2, stride=2))
+    pyr = [p[:, 0].contiguous() for p in pyr]
+    del level
+    sizes = [tuple(p.shape[1:]) for p in pyr]
+    yy, xx = torch.meshgrid(torch.arange(h8, device="cuda"), torch.arange(w8, device="cuda"), indexing="ij")
+    grid = torch.stack([xx, yy], dim=-1).float()[None].expand(n, h8, w8, 2)
+    shape = (n, h8, w8, len(pyr) * (2 * r + 1) ** 2)
+    grad = torch.randn(shape, generator=g, device="cuda")
+
+    def plain_bwd(coords):
+        leaves = [p.clone().requires_grad_(True) for p in pyr]
+        return torch.autograd.grad(corr_lookup_plain(leaves, coords, r, torch.float32), leaves, grad)
+
+    errs = []
+    for drift in (40.0, 3.0):
+        coords = (grid + drift * (2.0 * torch.rand(grid.shape, generator=g, device="cuda") - 1.0)).contiguous()
+        got = corr_lookup_backward(grad, sizes, coords, r)
+        for lvl, (a, b) in enumerate(zip(got, plain_bwd(coords))):
+            errs.append(_check(f"corr_lookup_bwd {shape} level {lvl}, drift +-{drift:g} px", a, b, atol=_LOOKUP_ATOL))
+    args = (0,) * 4 + tuple(s for hw in sizes for s in hw) + (len(pyr), r, 0, 0, coords.numel() // 2, 0)
+    row = dict(
+        kernel="corr_lookup_bwd", path="raft_train_368x496",
+        shape=list(shape) + ["float32", f"levels to {sizes[-1][0]}x{sizes[-1][1]}, r={r}, flow to +-3 px"],
+        launches=want["corr_lookup_bwd"], max_abs_err=max(errs),
+        ms=_time_ms(lambda: corr_lookup_backward(grad, sizes, coords, r)),
+        plain_ms=_time_ms(lambda: plain_bwd(coords), iters=5),
+        bytes=lookup_bwd_bytes(args), flops=None, library_ms=None,
+    )
+    _bound(row, hbm)
+    _say(f"  kernel {json.dumps(row)}")
+    del pyr, grad
+    torch.cuda.empty_cache()
+    return {"launches": launches, "row": row}
+
+
 def gmflow_phase(frames: torch.Tensor, card: str, hbm: float) -> dict:
     """GMFlow as the flow network. `stabilize` with
     `Config(flow=GmflowConfig())`, weights drawn from the configuration's
@@ -1982,7 +2076,8 @@ def train_phase(card: str, tmp: str) -> dict:
     # A step: 5 cost volumes and 4 feature warps forward and as many backward;
     # the batch's own 4 warps (the pair and three occluders) have no gradient.
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0,
+            "corr_lookup_bwd": 0}
     _say("train: " + json.dumps({
         "steps": steps, "run_s": wall, "steps_per_s_with_setup": steps / wall, "chunks": history,
         "launches": launches, "peak_mem_gb": peak, "card": card}))
@@ -2017,7 +2112,8 @@ def train_phase(card: str, tmp: str) -> dict:
     used = {k: n - before[k] for k, n in _all_launches().items()}
     _say("train: 5 photometric steps on one fixed pair: " + json.dumps({"steps": photo, "launches": used}))
     want_photo = {"cost_volume": 25, "bilinear_warp": 25, "vwarp": 0, "hwarp": 0,
-                  "cost_volume_bwd": 25, "bilinear_warp_bwd": 25, "corr_lookup": 0}
+                  "cost_volume_bwd": 25, "bilinear_warp_bwd": 25, "corr_lookup": 0,
+                  "corr_lookup_bwd": 0}
     if used != want_photo:
         raise AssertionError(f"5 photometric steps launched {used}, expected {want_photo}")
     if not all(np.isfinite(v) for m in photo for v in m.values()) or set(photo[0]) != {"loss", "grad_norm", "photo", "smooth"}:
@@ -2144,7 +2240,8 @@ def train_parity_phase(card: str) -> dict:
         summary["warm_start_s"] = time.perf_counter() - t0
 
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0,
+            "corr_lookup_bwd": 0}
     if launches != want:
         misses.append(f"launches {launches}, expected {want}")
     held = q.hold_steps(ref, hist)
@@ -2383,7 +2480,8 @@ def dp_train_phase(card: str) -> dict:
     scenes = torch.from_numpy(T.make_scene_pool(64, *_TRAIN_HW, seed=0)).to(dev)
     init = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     want = {"cost_volume": 5 * steps, "bilinear_warp": (4 + 4) * steps, "vwarp": 0, "hwarp": 0,
-            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0}
+            "cost_volume_bwd": 5 * steps, "bilinear_warp_bwd": 4 * steps, "corr_lookup": 0,
+            "corr_lookup_bwd": 0}
 
     def run(group):
         """Three steps from `init` on draws from seed 7, every launch
@@ -2551,6 +2649,7 @@ def main() -> int:
     paths["affine_720p"] = affine_phase(frames, params, card)
     paths["batch_720p"] = batch_phase(frames, params, card)
     raft_run = raft_phase(frames, card, hbm)
+    raft_train_run = raft_train_phase(card, hbm)
     gmflow_run = gmflow_phase(frames, card, hbm)
     head_phase(card, hbm)
     del frames
@@ -2615,7 +2714,9 @@ def main() -> int:
     _say(f"backward kernel checks: {time.perf_counter() - t0:.1f} s")
     rows.update(bwd_rows)
     rows["corr_lookup"] = raft_run["row"]
+    rows["corr_lookup_bwd"] = raft_train_run["row"]
     held["raft_720p"] = raft_run["launches"]
+    held["raft_train_368x496"] = raft_train_run["launches"]
     held["gmflow_720p"] = gmflow_run["launches"]
     rows["cost_volume"]["max_abs_err"] = max(rows["cost_volume"]["max_abs_err"], gmflow_run["max_abs_err"])
     zeros = {k: 0 for k in _all_launches()}
@@ -2633,12 +2734,14 @@ def main() -> int:
         "bilinear_warp_bwd": ("vstab_torch/kernels/csrc/warp.cu", "vstab/kernels/warp.py:71"),
         # RAFT is the port's own: no TPU kernel, no JAX formulation behind it.
         "corr_lookup": ("vstab_torch/kernels/csrc/corr_lookup.cu", None),
+        "corr_lookup_bwd": ("vstab_torch/kernels/csrc/corr_lookup.cu", None),
     }
     # The forward kernels report the whole-clip path's launches, the backward
     # kernels the training run's (no serving path launches them), the lookup
-    # the RAFT path's.
+    # the RAFT path's and its backward RAFT's training run's.
     main_of = {k: "train_192x256" if k.endswith("_bwd") else _MAIN for k in meta}
     main_of["corr_lookup"] = "raft_720p"
+    main_of["corr_lookup_bwd"] = "raft_train_368x496"
     kernels = [
         {
             "name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

@@ -1451,6 +1451,76 @@ def test_raft_corr_pyramid_is_float32_on_the_timed_path(cuda, monkeypatch, compu
     assert all(v > PYRAMID_RTOL for k, v in readings.items() if k != "path")
 
 
+# The lookup's backward (`vstab_corr_lookup_bwd`) against autograd of the
+# plain `grid_sample` version at the `train_raft_chairs` cell's shape: 10
+# pairs at 46x62, levels 46x62 / 23x31 / 11x15 / 5x7, radius 4, coordinates
+# drifted up to +-40 px (many windows partly or wholly outside a level), a
+# unit-scale random gradient. Both place the same four weights of each
+# sample; the plain version's weights come from coordinates mapped to
+# [-1, 1] and back (a few float32 ulps), so a window entry may differ by
+# about 1e-5 of the gradient rows' scale: LOOKUP_ATOL, as for the forward.
+# The written-out plain backward is held to the same bound.
+def test_corr_lookup_backward_matches_plain_autograd_at_the_train_cell(cuda):
+    from vstab_torch.kernels import KERNELS_RAFT, corr_lookup, corr_lookup_backward_plain, corr_lookup_plain
+
+    n, h8, w8 = 10, 46, 62
+    pyr = _corr_pyramid(cuda, n, h8, w8)
+    assert [tuple(p.shape[1:]) for p in pyr] == [(46, 62), (23, 31), (11, 15), (5, 7)]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    coords = _coords(cuda, n, h8, w8, 0.0)
+    coords = (coords + 40.0 * (2.0 * torch.rand(coords.shape, generator=g, device=cuda) - 1.0)).contiguous()
+    leaves = [p.clone().requires_grad_(True) for p in pyr]
+    reset_launches()
+    out = corr_lookup(leaves, coords, 4)
+    grad = torch.randn(out.shape, generator=g, device=cuda)
+    got = torch.autograd.grad(out, leaves, grad)
+    assert KERNELS_RAFT["corr_lookup"].launches == 1 and KERNELS_RAFT["corr_lookup_bwd"].launches == 1
+    plain = [p.clone().requires_grad_(True) for p in pyr]
+    want = torch.autograd.grad(corr_lookup_plain(plain, coords, 4), plain, grad)
+    written = corr_lookup_backward_plain(grad, [tuple(p.shape[1:]) for p in pyr], coords, 4)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    print(f"lookup backward at 10x46x62, r=4, +-40 px: max error by level {errs} (bound {LOOKUP_ATOL})")
+    for a, b, c in zip(got, want, written):
+        torch.testing.assert_close(a, b, rtol=0, atol=LOOKUP_ATOL)
+        torch.testing.assert_close(c, b, rtol=0, atol=LOOKUP_ATOL)
+    with pytest.raises(ValueError, match="no gradient"):
+        corr_lookup(pyr, coords.clone().requires_grad_(True), 4)
+    with pytest.raises(TypeError, match="float32"):
+        low = corr_lookup(leaves, coords, 4, torch.bfloat16)
+        torch.autograd.grad(low, leaves, torch.ones_like(low))
+
+
+def test_raft_train_steps_on_the_card_match_the_reference(cuda):
+    """3 steps shaped as the `train_raft_chairs` cell's (RAFT's weights from
+    the configuration's seed, batch 10 at 368x496 from its scene pool, 12
+    iterations) against `h100bench/reference/raft_train.py`, judged as the
+    cell judges them, under the cell's limits; the lookup and its backward
+    launched 12 times a step each."""
+    import time
+
+    from h100bench import harness
+    from h100bench.drivers import common
+    from h100bench.drivers import train_raft as drv
+    from h100bench.drivers.stabilize_raft import params as raft_params
+    from vstab_torch.kernels import KERNELS_RAFT
+
+    cell = harness.Cell.find("train_raft_chairs")
+    run = harness.Run(cell=cell, seed=2**31 + 5, seconds=0.0, trace=False, device=cuda,
+                      t_start=time.perf_counter())
+    cfg_dict, recipe = cell.config["program"], cell.config["recipe"]
+    params0 = raft_params(run)
+    traffic = harness.generator(cell.traffic["generator"]).generate(cell.traffic, run.seed, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(traffic["batch_seed"])
+    net, opt, step = drv.build_step(params0, common.program_config(cell.config), recipe, cuda)
+    reset_launches()
+    first = drv.first_steps(step, net, opt, gen, traffic["scenes"], recipe, 3)
+    assert KERNELS_RAFT["corr_lookup"].launches == KERNELS_RAFT["corr_lookup_bwd"].launches == 3 * 12
+    del net, opt, step
+    r = drv.readings(first, params0, traffic["scenes"], traffic["batch_seed"], cfg_dict, recipe, 3)
+    print(f"RAFT training, 3 steps against the reference: {r} (limits {cell.spec['limits']})")
+    assert all(r[k] <= limit for k, limit in cell.spec["limits"].items()), r
+
+
 # The f32 prediction head's GEMM form (`layers.conv3x3_to2`) against cuDNN's
 # f32 convolution with TF32 off, at the 720p chunk's level-2 head: max error
 # over the largest output. Both sum 5085 f32 products, each in its own order.

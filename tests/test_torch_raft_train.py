@@ -1,0 +1,433 @@
+"""vstab_torch's RAFT training held against the plain RAFT training step of
+the benchmark's reference, `h100bench/reference/raft_train.py` (plain
+float32 torch following the published code, importing nothing of
+`vstab_torch`), on the CPU, at the published widths on 64x96 pairs, batch 2,
+weights drawn with RAFT's initialisers (the JAX package has no RAFT).
+
+Tolerances, each with its reason:
+- the lookup's backward, written out (`corr_lookup_backward_plain`, the
+  CUDA kernel's arithmetic) against autograd of the `grid_sample` route:
+  1e-5 abs on unit-scale gradients. Both place the same four bilinear
+  weights; `grid_sample` takes its weights from coordinates mapped to
+  [-1, 1] and back, a few float32 ulps away (observed under 4e-6).
+- the 12 predictions: 1e-4 px, as `tests/test_torch_raft.py` holds the
+  float32 inference. Both compute the same operations in float32; the port
+  keeps channels-last memory and its own batch-norm kernel, which moves the
+  last bits (observed 1.4e-5 px on flows of 8 px after 12 iterations).
+- the loss: 1e-5 relative (observed 1e-7); the running statistics 1e-5
+  abs (observed 4e-7).
+- three optimizer steps, read as the benchmark's judge reads them (per
+  leaf, the gap of the norms over the larger of the reference's and the
+  median leaf's; the change over the leaves whose gradient is above a
+  thousandth of the median leaf's): the losses 1e-5 relative, the medians
+  of the first clipped gradient's gaps 1e-4 and of the change's 1e-3, every
+  leaf's 1e-2 (observed 6e-6, 4.7e-5, and at most 6.6e-4 and 1.5e-3).
+  AdamW's first steps move each element by about the rate whatever its
+  gradient's size, so the change of a leaf whose gradient is near round-off
+  takes round-off's signs: the change is compared by norms, not elements.
+"""
+
+import math
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from h100bench.reference import raft as ref_raft
+from h100bench.reference import raft_train as ref
+from h100bench.reference import train as ref_batches
+from vstab_torch.core.config import Config, FlowConfig, RaftConfig
+from vstab_torch.flow import raft
+from vstab_torch.flow import train as T
+from vstab_torch.kernels import corr_lookup, corr_lookup_backward, corr_lookup_backward_plain, corr_lookup_plain
+from vstab_torch.utils import trace
+
+torch.set_num_threads(4)
+CFG = RaftConfig(iters=12, compute_dtype="float32")
+FLOW = {"hidden": 128, "corr_levels": 4, "corr_radius": 4, "iters": 12}
+RECIPE = {"mode": "supervised", "lr": 4e-4, "weight_decay": 1e-4, "clip": 1.0,
+          "schedule_steps": 100_100, "pct_start": 0.05, "div_factor": 25.0, "final_div_factor": 1e4,
+          "gamma": 0.8, "max_flow": 400.0, "batch": 2, "hw": [64, 96], "max_disp": 8.0}
+ATOL_FLOW = 1e-4
+
+
+@pytest.fixture(scope="module")
+def params0():
+    return ref_raft.init_params(2020, torch.device("cpu"))
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return torch.rand((6, 64, 96, 3), generator=torch.Generator().manual_seed(3))
+
+
+def _batch(scenes, seed=4):
+    d = ref_batches.draw(torch.Generator().manual_seed(seed), scenes.shape[0], 2, (64, 96))
+    return ref_batches.batch(scenes, d, 8.0)
+
+
+def _pyramid(n, h, w, levels, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    pyr = [torch.randn((n * h * w, h, w), generator=g)]
+    for _ in range(levels - 1):
+        pyr.append(F.avg_pool2d(pyr[-1][:, None], 2, stride=2)[:, 0])
+    return pyr
+
+
+def _coords(n, h, w, spread, shift=(0.0, 0.0), seed=1):
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    base = torch.stack([xx + shift[0], yy + shift[1]], dim=-1).float()[None].expand(n, h, w, 2)
+    return (base + spread * torch.randn((n, h, w, 2), generator=g)).contiguous()
+
+
+# (grid h, w, levels, radius, spread px, shift px): a few pixels of flow;
+# windows partly and wholly outside the levels; far outside; levels down to
+# one pixel wide (8x12: 1x1 at level 3; 5x7: 1x1 at level 2).
+LOOKUP_CASES = {
+    "near": (8, 12, 4, 4, 0.7, (0.0, 0.0)),
+    "drift_6px": (8, 12, 4, 4, 6.0, (0.0, 0.0)),
+    "drift_40px": (13, 21, 4, 4, 40.0, (0.0, 0.0)),
+    "past_the_left": (13, 21, 4, 3, 0.5, (-13.3, 0.0)),
+    "past_the_bottom": (13, 21, 3, 2, 0.5, (0.0, 9.6)),
+    "far_outside": (8, 12, 4, 4, 0.5, (1e5, -3e6)),
+    "one_pixel_levels": (5, 7, 3, 1, 3.0, (0.0, 0.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_lookup_backward_written_out_matches_autograd_of_the_plain_lookup(case):
+    h, w, levels, r, spread, shift = LOOKUP_CASES[case]
+    pyr = _pyramid(2, h, w, levels)
+    coords = _coords(2, h, w, spread, shift)
+    leaves = [p.clone().requires_grad_(True) for p in pyr]
+    out = corr_lookup_plain(leaves, coords, r)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5))
+    want = torch.autograd.grad(out, leaves, g)
+    sizes = [tuple(p.shape[1:]) for p in pyr]
+    got = corr_lookup_backward_plain(g, sizes, coords, r)
+    assert corr_lookup_backward(g, sizes, coords, r)[0].shape == pyr[0].shape  # the CPU route
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    if case == "far_outside":
+        assert all(float(a.abs().max()) == 0.0 for a in got)
+    else:
+        assert float(got[0].abs().max()) > 0.1
+
+
+def test_lookup_backward_of_a_window_by_hand():
+    """One pixel, one 3x3 level, radius 1, sampled at (x, y) = (1.25, 0.5):
+    the gradient of sample (a, b) (x offset a - 1, y offset b - 1) lands on
+    the four taps around (0.25 + a, -0.5 + b) with the bilinear weights."""
+    g = torch.zeros((1, 1, 1, 9))
+    g[..., 1 * 3 + 1] = 1.0  # a = b = 1: the sample at (1.25, 0.5) itself
+    d = corr_lookup_backward_plain(g, [(3, 3)], torch.tensor([[[[1.25, 0.5]]]]), 1)[0][0]
+    want = torch.zeros((3, 3))
+    want[0, 1], want[0, 2], want[1, 1], want[1, 2] = 0.375, 0.125, 0.375, 0.125
+    torch.testing.assert_close(d, want, rtol=0, atol=1e-7)
+
+
+def test_lookup_bytes_count_beside_the_benchmarks():
+    from h100bench.counts import raft_train as counts
+    from vstab_torch.kernels.corr_lookup import lookup_bwd_bytes
+
+    args = [0] * 4 + [46, 62, 23, 31, 11, 15, 5, 7] + [4, 4, 0, 0, 28_520, 0]
+    assert lookup_bwd_bytes(28_520, 4, 4) == counts.lookup_bwd_bytes(args) == 28_520 * 2904
+
+
+def test_lookup_on_the_cpu_keeps_the_coordinates_gradient_free_of_kernels():
+    """The CPU route is autograd of `grid_sample`; the kernel route's
+    refusals (coordinates that ask for a gradient) need the card."""
+    pyr = _pyramid(1, 8, 12, 4)
+    coords = _coords(1, 8, 12, 1.0).requires_grad_(True)
+    out = corr_lookup([p.requires_grad_(True) for p in pyr], coords, 4)
+    assert out.grad_fn is not None
+    with pytest.raises(ValueError, match="no kernel"):
+        corr_lookup_backward(torch.zeros((1, 1, 1, 81), device="meta"), [(1, 1)],
+                             torch.zeros((1, 1, 1, 2), device="meta"), 4)
+
+
+def test_sequence_loss_by_hand():
+    """Two flows off the truth by 1 and 2 px in x everywhere, one pixel's
+    truth beyond 400 px (left out of every mean's numerator, kept in its
+    count): 0.8 * mean(|1|) + mean(|2|) over both components."""
+    gt = torch.zeros((1, 4, 4, 2))
+    gt[0, 0, 0, 0] = 500.0
+    preds = [gt.clone(), gt.clone()]
+    preds[0][..., 0] += 1.0
+    preds[1][..., 0] += 2.0
+    valid = 15 / 16
+    loss, aux = T.sequence_loss(preds, gt)
+    assert float(loss) == pytest.approx(0.8 * 0.5 * valid + 1.0 * valid, rel=1e-6)
+    assert float(ref.sequence_loss(preds, gt, 0.8, 400.0)) == pytest.approx(float(loss), rel=1e-6)
+    assert float(aux["epe"]) == pytest.approx(2.0) and float(aux["1px"]) == 0.0
+    assert float(aux["3px"]) == float(aux["5px"]) == 1.0
+
+
+def test_training_predictions_and_loss_match_the_reference(params0, scenes):
+    b = _batch(scenes)
+    net = raft.build_net(params0, CFG)
+    preds = net(b["im1"], b["im2"])
+    state = ref.trained_state(params0)
+    want = ref.forward(state, b["im1"], b["im2"], FLOW)
+    assert len(preds) == len(want) == 12
+    assert all(p.shape == (2, 64, 96, 2) for p in preds)
+    for p, q in zip(preds, want):
+        torch.testing.assert_close(p, q, rtol=0, atol=ATOL_FLOW)
+    assert float(preds[-1].detach().abs().max()) > 1.0  # the iterations move the flow
+    loss, _ = T.sequence_loss(preds, b["flow"])
+    want_loss = ref.sequence_loss(want, b["flow"], 0.8, 400.0)
+    assert float(loss.detach()) == pytest.approx(float(want_loss.detach()), rel=1e-5)
+    got = {k: v for k, v in net.named_buffers() if ref.is_stat(k)}
+    for k, v in got.items():
+        torch.testing.assert_close(v, state[k], rtol=0, atol=1e-5)
+    assert int(net.cnet.norm1.num_batches_tracked) == 1
+    assert float((got["cnet.norm1.running_var"] - 1.0).abs().max()) > 1e-3  # the statistics moved
+
+
+def test_wide_convolutions_of_the_training_pass_are_the_convolution(monkeypatch):
+    """`raft._conv3x3_gemm` (the form of the motion encoder's 256-channel 3x3
+    layers that the training pass asks `update` for): one product of
+    unfolded patches, equal to the convolution up to the order of its sums
+    (1e-5 on unit-scale values), its gradients too; `update` takes it only
+    when asked, so inference keeps cuDNN's convolution bit for bit."""
+    g = torch.Generator().manual_seed(8)
+    w = (0.02 * torch.randn((192, 256, 3, 3), generator=g)).contiguous(memory_format=torch.channels_last)
+    p = {"c.weight": w.requires_grad_(True), "c.bias": torch.randn(192, generator=g).requires_grad_(True)}
+    x = torch.randn((2, 256, 6, 9), generator=g).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    got = raft._conv3x3_gemm(p, "c", x)
+    want = F.conv2d(x, p["c.weight"], p["c.bias"], padding=1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    up = torch.randn(want.shape, generator=g)
+    for a, b in zip(torch.autograd.grad(got, [x, *p.values()], up), torch.autograd.grad(want, [x, *p.values()], up)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+    calls = []
+    real = raft._conv3x3_gemm
+    monkeypatch.setattr(raft, "_conv3x3_gemm", lambda *a: calls.append(a[1]) or real(*a))
+    st = {k: v for k, v in ref_raft.init_params(2020, torch.device("cpu")).items() if k.startswith("update_block.")}
+    net, flow = torch.randn((1, 128, 4, 6), generator=g), torch.randn((1, 2, 4, 6), generator=g)
+    corr = torch.randn((1, 324, 4, 6), generator=g)
+    with torch.enable_grad():
+        plain = raft.update(st, net, net, corr, flow)
+    assert calls == []
+    gemm = raft.update(st, net, net, corr, flow, gemm_wide=True)
+    assert calls == ["update_block.encoder.convc2", "update_block.encoder.conv"]
+    for a, b in zip(gemm, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_batch_norm_in_eval_mode_keeps_its_statistics(params0, scenes):
+    b = _batch(scenes)
+    net = raft.build_net(params0, CFG).eval()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    with torch.no_grad():
+        net(b["im1"], b["im2"])
+    assert all(torch.equal(before[k], v) for k, v in net.state_dict().items())
+
+
+def _program_steps(params0, scenes, steps):
+    net = raft.build_net(params0, CFG)
+    opt = T.make_optimizer(net.parameters(), RECIPE["lr"], RECIPE["weight_decay"], RECIPE["clip"])
+    sched = T._net(CFG).schedule(opt, RECIPE["schedule_steps"] - 100, RECIPE["lr"])  # the trainer's
+    step = T.make_train_step(net, opt, "supervised", sched)
+    gen = torch.Generator().manual_seed(9)
+    names = [k for k, _ in net.named_parameters()]
+    out = {"losses": []}
+    for i in range(steps):
+        m = step(T._sample_batch(gen, scenes, RECIPE["batch"], RECIPE["max_disp"]))
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["metrics"] = m
+            out["grad1"] = {k: opt.state[p]["exp_avg"] / 0.1 for k, p in zip(names, net.parameters())}
+    out["params"] = dict(zip(names, (p.detach() for p in net.parameters())))
+    out["stats"] = {k: v for k, v in net.named_buffers() if ref.is_stat(k)}
+    out["lr"] = opt.param_groups[0]["lr"]
+    return out
+
+
+def test_three_steps_of_make_train_step_match_the_reference(params0, scenes):
+    import statistics
+
+    from h100bench import judge
+
+    got = _program_steps(params0, scenes, 3)
+    want = ref.run(params0, scenes, 9, FLOW, RECIPE, 3)
+    assert set(got["metrics"]) == {"loss", "grad_norm", "epe", "1px", "3px", "5px"}
+    for a, b in zip(got["losses"], want["losses"]):
+        assert a == pytest.approx(b, rel=1e-5)
+    leaves0 = {k: v for k, v in ref.trained_state(params0).items() if not ref.is_stat(k)}
+    assert set(got["grad1"]) == set(want["grad1"]) == set(leaves0)
+    grad, update = judge.leaf_gaps(got, want, leaves0)
+    assert len(update) > 0.7 * len(grad)  # the biases ahead of a norm get no gradient
+    assert statistics.median(grad.values()) < 1e-4 and statistics.median(update.values()) < 1e-3
+    assert max(grad.values()) < 1e-2 and max(update.values()) < 1e-2
+    for k, v in got["stats"].items():
+        torch.testing.assert_close(v, want["stats"][k], rtol=0, atol=1e-5)
+    assert got["lr"] == pytest.approx(4e-4 * ref.one_cycle(3, 100_100, 0.05, 25.0, 1e4), rel=1e-12)
+
+
+@pytest.mark.parametrize("steps", [100_000, 1_900])
+def test_one_cycle_matches_torchs_one_cycle_lr(steps):
+    """The trainer's RAFT schedule (torch's `OneCycleLR` over the steps +
+    100, linear, no momentum cycle) against the reference's own formula:
+    the first 20 rates, those around the peak (step 5% of the total - 1) and
+    the last."""
+    p = torch.zeros(1, requires_grad=True)
+    opt = T.make_optimizer([p], 4e-4, weight_decay=1e-4)
+    sched = T._net(CFG).schedule(opt, steps, 4e-4)
+    total = steps + 100
+    peak = int(0.05 * total) - 1
+    watch = set(range(20)) | {peak - 1, peak, peak + 1, total - 1}
+    p.grad = torch.zeros_like(p)
+    for s in range(max(watch) + 1):
+        if s in watch:
+            lr = opt.param_groups[0]["lr"]
+            assert lr == pytest.approx(4e-4 * ref.one_cycle(s, total, 0.05, 25.0, 1e4), rel=1e-9), s
+        if s < total - 1:
+            opt.step()  # an optimizer step first, as a scheduler expects; the rates alone matter
+            sched.step()
+    assert opt.param_groups[0]["lr"] == pytest.approx(4e-4 / 25 / 1e4, rel=1e-9)
+
+
+def _estimate_flow_pairs_as_before(p, frames, cfg):
+    """`raft.estimate_flow_pairs` as it was before the training pass came
+    (the inference path's own sequence of operations, written against the
+    module's building blocks)."""
+    dtype = raft.compute_dtype(cfg)
+    t, h, w, _ = frames.shape
+    x, pads = raft.pad_to((2.0 * frames.float() - 1.0).permute(0, 3, 1, 2).to(dtype), 8)
+
+    def norm(name, y, kind):
+        if kind == "instance":
+            out = F.instance_norm(y, eps=1e-5)
+        else:
+            out = F.batch_norm(y, p[name + ".running_mean"], p[name + ".running_var"],
+                               p[name + ".weight"], p[name + ".bias"], False, 0.0, 1e-5)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    def conv(name, y, stride=1, padding=0):
+        return F.conv2d(y, p[name + ".weight"], p.get(name + ".bias"), stride=stride, padding=padding)
+
+    def encode(name, y, kind):
+        y = F.relu(norm(name + ".norm1", conv(name + ".conv1", y, 2, 3), kind))
+        for layer, stride in (("layer1", 1), ("layer2", 2), ("layer3", 2)):
+            for i, s in ((0, stride), (1, 1)):
+                b = f"{name}.{layer}.{i}"
+                z = F.relu(norm(b + ".norm1", conv(b + ".conv1", y, s, 1), kind))
+                z = F.relu(norm(b + ".norm2", conv(b + ".conv2", z, 1, 1), kind))
+                if b + ".downsample.0.weight" in p:
+                    y = norm(b + ".norm3", conv(b + ".downsample.0", y, s), kind)
+                y = F.relu(y + z)
+        return conv(name + ".conv2", y)
+
+    fmap = encode("fnet", x, "instance")
+    ctx = encode("cnet", x[:-1], "batch")
+    net = torch.tanh(ctx[:, : cfg.hidden]).contiguous(memory_format=torch.channels_last)
+    inp = torch.relu(ctx[:, cfg.hidden :]).contiguous(memory_format=torch.channels_last)
+    n, h8, w8 = t - 1, fmap.shape[2], fmap.shape[3]
+    pyramid = raft.corr_pyramid(fmap[:-1], fmap[1:], cfg.corr_levels)
+    yy, xx = torch.meshgrid(torch.arange(h8, dtype=torch.float32), torch.arange(w8, dtype=torch.float32),
+                            indexing="ij")
+    coords0 = torch.stack([xx, yy], dim=-1).expand(n, h8, w8, 2)
+    coords1 = coords0.clone()
+    for _ in range(cfg.iters):
+        corr = corr_lookup(pyramid, coords1, cfg.corr_radius, dtype).permute(0, 3, 1, 2)
+        net, delta = raft.update(p, net, inp, corr, (coords1 - coords0).permute(0, 3, 1, 2))
+        coords1 = coords1 + delta.permute(0, 2, 3, 1)
+    up = raft.upsample(p, net, (coords1 - coords0).permute(0, 3, 1, 2))
+    return up[:, :, pads[2] : pads[2] + h, pads[0] : pads[0] + w].permute(0, 2, 3, 1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_estimate_flow_pairs_is_bit_for_bit_as_before(params0, dtype):
+    cfg = RaftConfig(iters=4, compute_dtype=dtype)
+    p = raft.prepare(params0, cfg)
+    frames = torch.rand((3, 60, 90, 3), generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        want = _estimate_flow_pairs_as_before(p, frames, cfg)
+    before = {k: v.clone() for k, v in p.items()}
+    got = raft.estimate_flow_pairs(p, frames, cfg)
+    assert torch.equal(got, want)
+    assert all(torch.equal(before[k], v) for k, v in p.items())  # eval mode: no statistic moves
+
+
+def test_pwcnet_loss_path_is_unchanged():
+    """`make_loss` on a PWCNet is still the multiscale EPE of its pyramid."""
+    from vstab_torch.flow.pwcnet import init_params
+
+    cfg = FlowConfig(pyramid_channels=(8, 16, 24), estimator_channels=(16, 16), context_dilations=(1, 2, 1),
+                     search_radius=2, compute_dtype="float32", output_level=2)
+    net = T._trainable(init_params(0, cfg, "cpu"), cfg, torch.device("cpu"))
+    b = T.synthetic_batch(torch.Generator().manual_seed(1), 2, 64, 64, max_disp=2.0)
+    loss, aux = T.make_loss(net, "supervised")(b)
+    want, want_aux = T.multiscale_epe(net(b["im1"], b["im2"])["flow_pyramid"], b["flow"])
+    assert torch.equal(loss, want) and set(aux) == {"epe_finest"}
+    assert torch.equal(aux["epe_finest"], want_aux["epe_finest"])
+
+
+def test_raft_training_refuses_what_it_cannot_take(params0, scenes):
+    net = raft.build_net(params0, CFG)
+    with pytest.raises(ValueError, match="supervised"):
+        T.make_loss(net, "photometric")
+    b = _batch(scenes)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        net(b["im1"][:, :60], b["im2"][:, :60])
+    with pytest.raises(ValueError, match="float32"):
+        raft.train_forward(dict(net.state_dict()), b["im1"], b["im2"], RaftConfig())
+
+
+def test_spans_of_a_training_step(params0, scenes):
+    net = raft.build_net(params0, CFG)
+    opt = T.make_optimizer(net.parameters(), 4e-4, weight_decay=1e-4)
+    step = T.make_train_step(net, opt)
+    trace.clear()
+    with trace.recording():
+        step(_batch(scenes))
+    recs = trace.records()
+    trace.clear()
+    by = {}
+    for r in recs:
+        by.setdefault(r["name"], []).append(r)
+    root = by["vstab.train.step"][0]["id"]
+    for name in ("encode", "corr", "update"):
+        (rec,) = by[f"vstab.flow.raft.{name}"]
+        assert rec["root"] == root
+    assert by["vstab.flow.raft.corr"][0]["attrs"]["corr_bytes"] == 2 * raft.pyramid_bytes(8, 12, 4)
+    upd = by["vstab.flow.raft.update"][0]
+    assert upd["attrs"] == {"iters": 12, "lookup_bytes": 12 * 2 * 96 * (4 * 400 + 8 + 4 * 324)}
+    ups = by["vstab.flow.raft.upsample"]
+    assert len(ups) == 12 and all(r["parent"] == upd["id"] and r["attrs"] == {"iters": 1} for r in ups)
+    assert "vstab.flow.raft.lookup_bwd" not in by  # the span is the CUDA backward's
+
+
+def test_build_net_leaves_the_callers_weights_and_lays_out_channels_last(params0, scenes):
+    before = {k: v.clone() for k, v in params0.items()}
+    net = raft.build_net(params0, CFG)
+    assert net.training and net.fnet.conv1.weight.is_contiguous(memory_format=torch.channels_last)
+    opt = T.make_optimizer(net.parameters(), 4e-4, weight_decay=1e-4)
+    T.make_train_step(net, opt)(_batch(scenes))
+    assert all(torch.equal(before[k], v) for k, v in params0.items())
+    assert not torch.equal(net.update_block.gru.convz1.weight, params0["update_block.gru.convz1.weight"])
+
+
+def test_the_trainers_entry_trains_raft_from_init_params(tmp_path, capsys):
+    """`python -m vstab_torch.flow.train --net raft` at a small size on the
+    CPU: RAFT from `raft.init_params(seed)`, the chairs recipe, a saved
+    state dict and the two held-out gates."""
+    argv = ["--net", "raft", "--steps", "2", "--scan-len", "1", "--batch", "2", "--hw", "64", "96",
+            "--n-scenes", "4", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    assert T._main(argv) == 0
+    out = capsys.readouterr().out
+    assert "step 2/2" in out and "'epe'" in out and "held-out EPE [cross-dist]" in out
+    saved = torch.load(tmp_path / "raft_000002.pth")
+    start = raft.init_params(0, CFG, device="cpu")
+    assert set(saved) == set(start)
+    assert not torch.equal(saved["update_block.mask.2.weight"], start["update_block.mask.2.weight"])
+    assert int(saved["cnet.norm1.num_batches_tracked"]) == 2
+
+
+def test_pipeline_config_carries_the_training_iterations():
+    cfg = Config.from_json(Config(flow=CFG).to_json())
+    assert cfg.flow == CFG and math.isclose(T.GAMMA, 0.8) and T.MAX_FLOW == 400.0

@@ -22,6 +22,13 @@ One departure from the published code: in `test_mode` RAFT upsamples after
 every iteration and returns only the last result, so here the mask head and
 the upsampling run once, after the last iteration. No output changes.
 
+Training (`RAFT.forward`, `train_forward`): RAFT's `forward(...,
+test_mode=False)` over the module's parameters, in float32 with TF32 off:
+`cnet`'s batch norm in training mode (momentum 0.1, eps 1e-5, its running
+statistics updated), `coords1` detached at every iteration, the mask head
+and the convex upsampling after every iteration; it returns every
+iteration's full-resolution flow. `flow/train.py` trains it.
+
 Layout: the port's frames [T,H,W,3] in [0, 1] and flow [T-1,H,W,2] (x, y);
 inside, NCHW tensors in channels-last memory, as cuDNN takes them.
 """
@@ -106,14 +113,21 @@ class BasicUpdateBlock(nn.Module):
 
 class RAFT(nn.Module):
     """RAFT's module tree: its parameter names and shapes, and its
-    initialisers. The forward pass is `estimate_flow_pairs`, over a state
-    dict."""
+    initialisers. Inference is `estimate_flow_pairs`, over a state dict;
+    `forward` is the training pass over the module's own tensors."""
 
     def __init__(self, cfg: RaftConfig = RaftConfig()):
         super().__init__()
+        self.cfg = cfg
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(cfg.hidden + cfg.context, "batch")
         self.update_block = BasicUpdateBlock(cfg)
+
+    def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> List[torch.Tensor]:
+        """`train_forward` over the parameters and buffers, `cnet`'s batch
+        norm in training mode while the module is."""
+        p = {**dict(self.named_parameters()), **dict(self.named_buffers())}
+        return train_forward(p, im1, im2, self.cfg, train_bn=self.training)
 
 
 def _norm(kind: str, ch: int) -> nn.Module:
@@ -157,6 +171,19 @@ def init_params(
     return {k: v.detach() for k, v in net.state_dict().items()}
 
 
+def build_net(params: Mapping[str, torch.Tensor], cfg: RaftConfig, device=None) -> RAFT:
+    """A RAFT module in training mode on `device` (the tensors' own if
+    None) over float32 copies of `params` (the caller's stay as they are),
+    its convolution weights in channels-last memory as the activations are."""
+    dev = next(iter(params.values())).device if device is None else torch.device(device)
+    with torch.device("meta"):
+        net = RAFT(cfg)
+    state = {k: v.detach().to(dev, torch.float32 if v.is_floating_point() else v.dtype, copy=True)
+             for k, v in params.items()}
+    net.load_state_dict(state, strict=True, assign=True)
+    return net.to(memory_format=_CL).train()
+
+
 def prepare(params: Mapping[str, torch.Tensor], cfg: RaftConfig) -> Dict[str, torch.Tensor]:
     """The state dict as the forward pass takes it, cast once per call of
     `clip_flow`: convolution weights and biases in the compute dtype (the
@@ -178,36 +205,41 @@ def _conv(p, name: str, x: torch.Tensor, stride: int = 1, padding=0) -> torch.Te
     return F.conv2d(x, p[name + ".weight"], p.get(name + ".bias"), stride=stride, padding=padding)
 
 
-def _norm_apply(p, name: str, x: torch.Tensor, kind: str) -> torch.Tensor:
+def _norm_apply(p, name: str, x: torch.Tensor, kind: str, train: bool = False) -> torch.Tensor:
+    """Instance norm, or batch norm: in eval mode, or with `train` in
+    training mode (the batch's statistics, the running ones updated with
+    momentum 0.1 and the count of batches raised, as `nn.BatchNorm2d`)."""
     if kind == "instance":
         y = F.instance_norm(x, eps=1e-5)
     else:
         y = F.batch_norm(x, p[name + ".running_mean"], p[name + ".running_var"],
-                         p[name + ".weight"], p[name + ".bias"], False, 0.0, 1e-5)
+                         p[name + ".weight"], p[name + ".bias"], train, 0.1 if train else 0.0, 1e-5)
+        if train:
+            p[name + ".num_batches_tracked"].add_(1)
     return y.contiguous(memory_format=_CL)
 
 
-def _residual(p, name: str, x: torch.Tensor, kind: str, stride: int) -> torch.Tensor:
+def _residual(p, name: str, x: torch.Tensor, kind: str, stride: int, train: bool = False) -> torch.Tensor:
     """`ResidualBlock` `name` of RAFT or GMFlow: its convolutions with or
     without bias, and the 1x1 shortcut wherever the state dict has one (RAFT:
     where the stride is not 1; GMFlow: also where the widths differ)."""
-    y = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, stride, 1), kind))
-    y = F.relu(_norm_apply(p, name + ".norm2", _conv(p, name + ".conv2", y, 1, 1), kind))
+    y = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, stride, 1), kind, train))
+    y = F.relu(_norm_apply(p, name + ".norm2", _conv(p, name + ".conv2", y, 1, 1), kind, train))
     if name + ".downsample.0.weight" in p:
-        x = _norm_apply(p, name + ".norm3", _conv(p, name + ".downsample.0", x, stride), kind)
+        x = _norm_apply(p, name + ".norm3", _conv(p, name + ".downsample.0", x, stride), kind, train)
     return F.relu(x + y)
 
 
 def encode(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, kind: str,
-           strides: Tuple[int, int, int] = (1, 2, 2)) -> torch.Tensor:
+           strides: Tuple[int, int, int] = (1, 2, 2), train: bool = False) -> torch.Tensor:
     """`BasicEncoder` `name` ('fnet' or 'cnet') on images [N,3,H,W] in
     [-1, 1] -> [N,C,H/8,W/8]: instance norm (per image, affine-free) or
-    batch norm in eval mode. `strides` are the three layers' (GMFlow's
-    `CNNEncoder` at two scales: (1, 2, 1), to 1/4)."""
-    x = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, 2, 3), kind))
+    batch norm, in eval mode unless `train`. `strides` are the three layers'
+    (GMFlow's `CNNEncoder` at two scales: (1, 2, 1), to 1/4)."""
+    x = F.relu(_norm_apply(p, name + ".norm1", _conv(p, name + ".conv1", x, 2, 3), kind, train))
     for layer, stride in zip(("layer1", "layer2", "layer3"), strides):
-        x = _residual(p, f"{name}.{layer}.0", x, kind, stride)
-        x = _residual(p, f"{name}.{layer}.1", x, kind, 1)
+        x = _residual(p, f"{name}.{layer}.0", x, kind, stride, train)
+        x = _residual(p, f"{name}.{layer}.1", x, kind, 1, train)
     return _conv(p, name + ".conv2", x)
 
 
@@ -230,19 +262,42 @@ def pyramid_bytes(h8: int, w8: int, levels: int) -> int:
     return 4 * h8 * w8 * sum((h8 >> i) * (w8 >> i) for i in range(levels))
 
 
+def _conv3x3_gemm(p, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Convolution `name` (3x3, stride 1, padding 1) as one matrix product
+    of x's 3x3 patches (`F.unfold`, each patch channel-major as the weight)
+    with the weight [O, 9 C], plus the bias, written [N,O,H,W] in
+    channels-last memory. Only the order of the float32 sums differs from
+    the convolution's."""
+    w = p[name + ".weight"]
+    n, _, h, wd = x.shape
+    cols = F.unfold(x, 3, padding=1)  # [N, C 9, H W]
+    out = torch.matmul(cols.transpose(1, 2), w.reshape(w.shape[0], -1).t()) + p[name + ".bias"]
+    return out.view(n, h, wd, -1).permute(0, 3, 1, 2)
+
+
 def update(p: Mapping[str, torch.Tensor], net: torch.Tensor, inp: torch.Tensor,
-           corr: torch.Tensor, flow: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+           corr: torch.Tensor, flow: torch.Tensor,
+           gemm_wide: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One `BasicUpdateBlock` step without its mask: (new hidden state,
     delta flow [N,2,H,W] float32). corr [N,C,H,W] and net, inp in the
-    compute dtype; flow float32."""
+    compute dtype; flow float32. With `gemm_wide` the motion encoder's two
+    3x3 convolutions over 256 channels (`convc2`, `conv`) run as
+    `_conv3x3_gemm` (RAFT's float32 training pass: there cuDNN's heuristic
+    picks an FFT engine for them that takes ~34 ms a call at batch 10 of
+    368x496 on an H100, 0.7 TFLOP/s, and whose time moves by several percent
+    from process to process); else as cuDNN's convolutions."""
     e, g = "update_block.encoder.", "update_block.gru."
     dtype = net.dtype
     flo = flow.to(dtype)
+
+    def wide(name, x):
+        return _conv3x3_gemm(p, e + name, x) if gemm_wide else _conv(p, e + name, x, padding=1)
+
     cor = F.relu(_conv(p, e + "convc1", corr))
-    cor = F.relu(_conv(p, e + "convc2", cor, padding=1))
+    cor = F.relu(wide("convc2", cor))
     fl = F.relu(_conv(p, e + "convf1", flo, padding=3))
     fl = F.relu(_conv(p, e + "convf2", fl, padding=1))
-    out = F.relu(_conv(p, e + "conv", torch.cat([cor, fl], dim=1), padding=1))
+    out = F.relu(wide("conv", torch.cat([cor, fl], dim=1)))
     x = torch.cat([inp, out, flo], dim=1)
     h = net
     for i, pad in (("1", (0, 2)), ("2", (2, 0))):
@@ -334,6 +389,53 @@ def estimate_flow_pairs(p: Mapping[str, torch.Tensor], frames: torch.Tensor,
         return up.permute(0, 2, 3, 1).contiguous()
 
 
+def train_forward(p: Mapping[str, torch.Tensor], im1: torch.Tensor, im2: torch.Tensor,
+                  cfg: RaftConfig, train_bn: bool = True) -> List[torch.Tensor]:
+    """RAFT's training pass (`forward(..., test_mode=False)`) on pairs
+    [N,H,W,3] in [0, 1], H and W multiples of 8 -> `cfg.iters` flows
+    [N,H,W,2], one an iteration, each upsampled x8 with its own mask.
+    Float32 throughout with TF32 off, the motion encoder's wide layers as
+    `_conv3x3_gemm`; `cnet`'s batch norm in training mode unless `train_bn`
+    is False; the coordinates detached at every iteration.
+    Spans: `encode`, `corr` and `update` once, `upsample` (the mask head and
+    the convex upsampling) an iteration, nested in `update`."""
+    if cfg.compute_dtype != "float32":
+        raise ValueError(f"RAFT trains in float32, not {cfg.compute_dtype}")
+    n, h, w, _ = im1.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"RAFT's training pairs are multiples of 8 in size, not {h}x{w}")
+    pin_full_f32()
+    dev = im1.is_cuda
+    x = (2.0 * torch.cat([im1, im2]).float() - 1.0).permute(0, 3, 1, 2)
+    with trace.span("vstab.flow.raft.encode", device=dev):
+        fmap = encode(p, "fnet", x, "instance")
+        ctx = encode(p, "cnet", x[:n], "batch", train=train_bn)
+        net = torch.tanh(ctx[:, : cfg.hidden]).contiguous(memory_format=_CL)
+        inp = torch.relu(ctx[:, cfg.hidden :]).contiguous(memory_format=_CL)
+    h8, w8 = h // 8, w // 8
+    with trace.span("vstab.flow.raft.corr", device=dev, corr_bytes=n * pyramid_bytes(h8, w8, cfg.corr_levels)):
+        pyramid = corr_pyramid(fmap[:n], fmap[n:], cfg.corr_levels)
+    yy, xx = torch.meshgrid(torch.arange(h8, device=im1.device, dtype=torch.float32),
+                            torch.arange(w8, device=im1.device, dtype=torch.float32), indexing="ij")
+    coords0 = torch.stack([xx, yy], dim=-1).expand(n, h8, w8, 2)  # [N,H,W,(x, y)]
+    coords1 = coords0.clone()
+    k = (2 * cfg.corr_radius + 1) ** 2 * cfg.corr_levels
+    window = (2 * cfg.corr_radius + 2) ** 2 * cfg.corr_levels
+    preds = []
+    with trace.span("vstab.flow.raft.update", device=dev, iters=cfg.iters,
+                    lookup_bytes=cfg.iters * n * h8 * w8 * (4 * window + 8 + 4 * k)):
+        for _ in range(cfg.iters):
+            coords1 = coords1.detach()
+            corr = corr_lookup(pyramid, coords1, cfg.corr_radius).permute(0, 3, 1, 2)
+            net, delta = update(p, net, inp, corr, (coords1 - coords0).permute(0, 3, 1, 2),
+                                  gemm_wide=True)
+            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            with trace.span("vstab.flow.raft.upsample", device=dev, iters=1):
+                up = upsample(p, net, (coords1 - coords0).permute(0, 3, 1, 2))
+                preds.append(up.permute(0, 2, 3, 1))
+    return preds
+
+
 def pair_chunk(h: int, w: int, cfg: RaftConfig, chunk: int) -> int:
     """Pairs in one chunk of `clip_flow` for RAFT at h x w: `chunk` (the
     PWC-Net default), lowered until the chunk's float32 correlation
@@ -353,6 +455,7 @@ def pair_chunk(h: int, w: int, cfg: RaftConfig, chunk: int) -> int:
 
 __all__ = [
     "RAFT",
+    "build_net",
     "convex_upsample",
     "corr_pyramid",
     "encode",
@@ -362,6 +465,7 @@ __all__ = [
     "pair_chunk",
     "prepare",
     "pyramid_bytes",
+    "train_forward",
     "update",
     "upsample",
 ]

@@ -24,6 +24,20 @@ backward pass averages the gradients and the metrics over the group's ranks
 (one collective each, on one flat buffer), so that every rank clips on the
 global norm and takes the same optimizer step.
 
+RAFT (`vstab_torch.flow.raft`, the port's own: the JAX package has no
+RAFT) trains through the same step, optimizer, batch maker and entry points,
+with the recipe of RAFT's chairs stage (Teed & Deng, ECCV 2020;
+princeton-vl/RAFT `train.py` and `train_standard.sh`): the sequence loss over
+its 12 iterations (gamma 0.8, pixels with |gt| >= 400 left out), AdamW (lr
+4e-4, weight decay 1e-4, eps 1e-8) after a global-norm clip at 1.0, and a
+linear one-cycle schedule over the steps + 100 (torch's `OneCycleLR`).
+Departures from that recipe:
+  * the whole batch sits on one device, so `cnet`'s batch norm normalises
+    over all its rows, not over each of DataParallel's replicas' share;
+  * the clip is optax's, `clip / max(norm, clip)`, where torch's
+    `clip_grad_norm_` takes `clip / (norm + 1e-6)`;
+  * the synthetic scene pool stands in for FlyingChairs and its augmentor.
+
 Random numbers: a `torch.Generator` cannot reproduce `jax.random`'s streams,
 so every batch maker is split in two: `_draw_*` takes the generator and
 returns the named draws, and `_*_from_draws` does everything else
@@ -31,10 +45,12 @@ deterministically (and is what the tests hold against the JAX package, fed
 with draws made by `jax.random`).
 
     python -m vstab_torch.flow.train --steps 4000 [--hw 192 256] [--device cuda]
+    python -m vstab_torch.flow.train --net raft --steps 100000   # 368x496, batch 10
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import os
@@ -45,8 +61,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from vstab_torch.core.config import FlowConfig
+from vstab_torch.core.config import FlowConfig, RaftConfig
 from vstab_torch.core.precision import pin_full_f32
+from vstab_torch.flow import raft
 from vstab_torch.flow.pwcnet import PWCNet, build_net, estimate_flow, init_params
 from vstab_torch.kernels import bilinear_warp
 from vstab_torch.kernels.warp import UNBOUNDED
@@ -57,6 +74,9 @@ Draws = Dict[str, Any]
 
 # PWC-Net per-level loss weights, coarsest -> finest.
 LEVEL_WEIGHTS = (0.32, 0.08, 0.02, 0.01, 0.005)
+# RAFT's sequence loss: the weight of iteration i of n is GAMMA^(n-1-i);
+# ground truth of MAX_FLOW px or more counts as invalid.
+GAMMA, MAX_FLOW = 0.8, 400.0
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +174,26 @@ def multiscale_epe(
     return total, {"epe_finest": epe.detach()}
 
 
+def sequence_loss(
+    preds: Sequence[torch.Tensor], gt_flow: torch.Tensor, gamma: float = GAMMA, max_flow: float = MAX_FLOW,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RAFT's sequence loss over its iterations' flows [N,H,W,2]: the sum
+    of gamma^(n-1-i) mean(valid |pred_i - gt|), valid = |gt| < max_flow,
+    the mean over every pixel and both components. aux: RAFT's `epe`, `1px`,
+    `3px` and `5px` of the last flow over the valid pixels."""
+    valid = (torch.sum(gt_flow**2, dim=-1).sqrt() < max_flow).float()
+    total = 0.0
+    for i, fl in enumerate(preds):
+        total = total + gamma ** (len(preds) - 1 - i) * torch.mean(valid[..., None] * (fl - gt_flow).abs())
+    with torch.no_grad():
+        epe = torch.sum((preds[-1] - gt_flow) ** 2, dim=-1).sqrt()
+        count = valid.sum()
+        aux = {"epe": (epe * valid).sum() / count}
+        for px in (1, 3, 5):
+            aux[f"{px}px"] = ((epe < px).float() * valid).sum() / count
+    return total, aux
+
+
 def _charbonnier(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     return torch.sqrt(x * x + eps * eps)
 
@@ -228,11 +268,16 @@ def cosine_schedule(optimizer: torch.optim.Optimizer, steps: int, alpha: float):
     return torch.optim.lr_scheduler.LambdaLR(optimizer, lambda s: cosine_decay(s, steps, alpha))
 
 
-def make_loss(net: PWCNet, mode: str = "supervised") -> Callable[[Batch], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
-    """loss_fn(batch) -> (loss, aux) of `net` on a batch: dict with 'im1',
-    'im2' [N,H,W,3] (+ 'flow' [N,H,W,2] if supervised)."""
+def make_loss(net, mode: str = "supervised") -> Callable[[Batch], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """loss_fn(batch) -> (loss, aux) of `net` (a PWCNet, or a RAFT module:
+    its sequence loss, supervised only) on a batch: dict with 'im1', 'im2'
+    [N,H,W,3] (+ 'flow' [N,H,W,2] if supervised)."""
     if mode not in ("supervised", "photometric"):
         raise ValueError(f"unknown training mode: {mode}")
+    if isinstance(net, raft.RAFT):
+        if mode != "supervised":
+            raise ValueError("RAFT trains on its supervised sequence loss only")
+        return lambda batch: sequence_loss(net(batch["im1"], batch["im2"]), batch["flow"])
 
     def loss_fn(batch: Batch):
         pyr = net(batch["im1"], batch["im2"])["flow_pyramid"]
@@ -263,10 +308,12 @@ def _check_local_batch(n: int, group) -> None:
 
 
 def make_train_step(
-    net: PWCNet, optimizer: ClippedAdamW, mode: str = "supervised", scheduler=None, group=None,
+    net, optimizer: ClippedAdamW, mode: str = "supervised", scheduler=None, group=None,
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """Returns step(batch) -> metrics, which updates `net`'s parameters in
-    place (and steps `scheduler`, if given, once after the optimizer).
+    """Returns step(batch) -> metrics, which updates `net`'s parameters
+    (a PWCNet's or a RAFT module's, whose batch norm also updates its
+    running statistics) in place (and steps `scheduler`, if given, once
+    after the optimizer).
     metrics: 'loss', 'grad_norm' (before clipping) and the loss's own
     entries, tensors on the device (nothing is read back).
 
@@ -515,26 +562,103 @@ def _sample_batch(
 # ---------------------------------------------------------------------------
 
 
-def _trainable(params: Mapping[str, torch.Tensor], cfg: FlowConfig, dev: torch.device) -> PWCNet:
-    """A PWCNet on `dev` over f32 copies of `params` (the caller's stay as they are)."""
+def _pwcnet_build(params: Mapping[str, torch.Tensor], cfg: FlowConfig, dev: torch.device) -> PWCNet:
     return build_net(
         {k: v.detach().to(dev, torch.float32, copy=True) for k, v in params.items()}, cfg
     ).train()
 
 
-def _state(net: PWCNet) -> Dict[str, torch.Tensor]:
-    return {k: v.detach() for k, v in net.state_dict().items()}
+def _pwcnet_flow(params, cfg: FlowConfig, dev: torch.device):
+    return lambda im1, im2: estimate_flow(params, im1, im2, cfg)
 
 
-def _save(ckpt_dir: str, steps: int, params: Mapping[str, torch.Tensor]) -> None:
+def _pwcnet_save(ckpt_dir: str, steps: int, params: Mapping[str, torch.Tensor]) -> None:
     from vstab_torch.utils.checkpoint import params_to_jax, save_params
 
-    os.makedirs(ckpt_dir, exist_ok=True)
     save_params(os.path.join(ckpt_dir, f"flow_{steps:06d}.msgpack"), params_to_jax(params))
 
 
+def _pwcnet_load(path: str) -> Dict[str, torch.Tensor]:
+    from vstab_torch.utils.checkpoint import load_params, params_from_jax
+
+    return params_from_jax(load_params(path))
+
+
+def _raft_schedule(optimizer: torch.optim.Optimizer, steps: int, lr: float):
+    """RAFT's recipe: torch's linear one-cycle over the steps + 100, from
+    lr / 25 up to lr in the first 5%, then down to lr / 2.5e5."""
+    return torch.optim.lr_scheduler.OneCycleLR(
+        optimizer, max_lr=lr, total_steps=steps + 100, pct_start=0.05, anneal_strategy="linear",
+        cycle_momentum=False,
+    )
+
+
+def _raft_flow(params, cfg: RaftConfig, dev: torch.device):
+    net = raft.build_net(params, cfg, dev).eval()
+    return lambda im1, im2: net(im1, im2)[-1]
+
+
+def _raft_save(ckpt_dir: str, steps: int, params: Mapping[str, torch.Tensor]) -> None:
+    torch.save(dict(params), os.path.join(ckpt_dir, f"raft_{steps:06d}.pth"))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Net:
+    """What the trainer's entry points do differently for one flow network."""
+
+    init: Callable  # (generator, cfg, device) -> the seeded state dict
+    build: Callable  # (state dict, cfg, device) -> the module in training mode over f32 copies
+    weight_decay: float
+    schedule: Callable  # (optimizer, steps, lr) -> a scheduler stepped once a step
+    flow: Callable  # (state dict, cfg, device) -> (im1, im2) -> the held-out flow [N,H,W,2]
+    save: Callable  # (ckpt_dir, steps, state dict): the checkpoint
+    load: Callable  # (path) -> state dict: a checkpoint to warm-start from
+    cli: Dict[str, Any]  # the command line's defaults
+
+
+# PWC-Net's fine-tune (cosine to 2%, weight decay 4e-4, checkpoints in the
+# JAX package's format), and RAFT's chairs stage (batch 10 at 368x496, peak
+# rate 4e-4, its own torch state dicts).
+_NETS = {
+    FlowConfig: _Net(
+        init_params, _pwcnet_build, 4e-4, lambda opt, steps, lr: cosine_schedule(opt, steps, alpha=0.02),
+        _pwcnet_flow, _pwcnet_save, _pwcnet_load,
+        {"steps": 4000, "batch": 8, "hw": (192, 256), "lr": 2e-4, "max_disp": 12.0},
+    ),
+    RaftConfig: _Net(
+        raft.init_params, raft.build_net, 1e-4, _raft_schedule, _raft_flow, _raft_save,
+        functools.partial(torch.load, map_location="cpu"),
+        {"steps": 100_000, "batch": 10, "hw": (368, 496), "lr": 4e-4, "max_disp": 32.0},
+    ),
+}
+
+
+def _net(cfg) -> _Net:
+    if type(cfg) not in _NETS:
+        raise ValueError(f"no trainer for {type(cfg).__name__}")
+    return _NETS[type(cfg)]
+
+
+def _trainable(params: Mapping[str, torch.Tensor], cfg, dev: torch.device):
+    """The network of `cfg` (a PWCNet, or for a `RaftConfig` a RAFT module)
+    in training mode on `dev` over f32 copies of `params` (the caller's stay
+    as they are)."""
+    return _net(cfg).build(params, cfg, dev)
+
+
+def _state(net) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in net.state_dict().items()}
+
+
+def _save(ckpt_dir: str, steps: int, params: Mapping[str, torch.Tensor], cfg) -> None:
+    """PWC-Net's state in the JAX package's format (`flow_{steps}.msgpack`),
+    RAFT's as its own torch state dict (`raft_{steps}.pth`)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    _net(cfg).save(ckpt_dir, steps, params)
+
+
 def train_fast(
-    cfg: FlowConfig,
+    cfg,
     steps: int = 4000,
     batch_size: int = 8,
     hw: Tuple[int, int] = (192, 256),
@@ -553,20 +677,24 @@ def train_fast(
     uploaded once, and the metrics of `scan_len` steps are summed on the
     device and read back once for one log line (the JAX package scans
     `scan_len` steps in one dispatch; here it is a plain loop with no read
-    inside a chunk). Cosine schedule to 2% of `lr`. Saves
-    `flow_{steps:06d}.msgpack` in the JAX package's format and returns the
-    state dict."""
+    inside a chunk). PWC-Net (`cfg` a `FlowConfig`): cosine schedule to 2%
+    of `lr`, weight decay 4e-4; saves `flow_{steps:06d}.msgpack` in the JAX
+    package's format. RAFT (`cfg` a `RaftConfig`, weights from
+    `raft.init_params` unless given): RAFT's chairs recipe, `lr` the
+    one-cycle peak over steps + 100, weight decay 1e-4; saves
+    `raft_{steps:06d}.pth`. Returns the state dict."""
     from vstab_torch.pipeline import resolve_device
 
     dev = resolve_device(device)
     pin_full_f32()
     h, w = hw
     gen = torch.Generator(device=dev).manual_seed(seed)
+    recipe = _net(cfg)
     if params is None:
-        params = init_params(gen, cfg, dev)
-    net = _trainable(params, cfg, dev)
-    opt = make_optimizer(net.parameters(), lr)
-    step = make_train_step(net, opt, mode, cosine_schedule(opt, steps, alpha=0.02))
+        params = recipe.init(gen, cfg, dev)
+    net = recipe.build(params, cfg, dev)
+    opt = make_optimizer(net.parameters(), lr, weight_decay=recipe.weight_decay)
+    step = make_train_step(net, opt, mode, recipe.schedule(opt, steps, lr))
     scenes = torch.from_numpy(make_scene_pool(n_scenes, h, w, seed=seed, kinds=kinds)).to(dev)
 
     done = 0
@@ -583,7 +711,7 @@ def train_fast(
 
     out = _state(net)
     if ckpt_dir is not None:
-        _save(ckpt_dir, steps, out)
+        _save(ckpt_dir, steps, out, cfg)
     return out
 
 
@@ -596,17 +724,20 @@ def eval_epe(
     """Held-out synthetic EPE at full input resolution, on clean (unblurred)
     scenes. kinds=('perlin',) is the cross-distribution gate: a family the
     trainer never saw. occluders=True measures the dynamic-scene regime.
-    Batch i draws from a generator seeded by `seed` and i."""
+    Batch i draws from a generator seeded by `seed` and i. For a
+    `RaftConfig`: the last iteration's flow, batch norm in eval mode."""
     from vstab_torch.pipeline import resolve_device
 
     dev = resolve_device(device)
     params = {k: v.to(dev) for k, v in params.items()}
+    flow = _net(cfg).flow(params, cfg, dev)
     scenes = torch.from_numpy(make_scene_pool(8, hw[0], hw[1], seed=seed, kinds=kinds)).to(dev)
     epes = []
     for i in range(-(-n // 8)):
         gen = torch.Generator(device=dev).manual_seed(seed * 65537 + i)
         batch = _sample_batch(gen, scenes, 8, max_disp, blur=False, occluders=occluders)
-        fl = estimate_flow(params, batch["im1"], batch["im2"], cfg)
+        with torch.no_grad():
+            fl = flow(batch["im1"], batch["im2"])
         err = torch.sqrt(torch.sum((fl - batch["flow"]) ** 2, -1) + 1e-12)
         epes.append(float(torch.mean(err)))
     return sum(epes) / len(epes)
@@ -649,30 +780,33 @@ def train(
             print(f"step {step}: {m}", flush=True)
     out = _state(net)
     if ckpt_dir is not None:
-        _save(ckpt_dir, steps, out)
+        _save(ckpt_dir, steps, out, cfg)
     return out
 
 
 def _main(argv=None) -> int:
-    """python -m vstab_torch.flow.train --steps 4000 [--hw 192 256] ..."""
+    """python -m vstab_torch.flow.train [--net raft] --steps 4000 [--hw 192 256] ..."""
     import argparse
     import logging
 
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(prog="python -m vstab_torch.flow.train")
-    ap.add_argument("--steps", type=int, default=4000)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--hw", type=int, nargs=2, default=(192, 256))
-    ap.add_argument("--lr", type=float, default=2e-4)
+    ap.add_argument("--net", choices=("pwcnet", "raft"), default="pwcnet",
+                    help="the flow network: PWC-Net, or RAFT large from raft.init_params(--seed)")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--hw", type=int, nargs=2, default=None)
+    ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scan-len", type=int, default=100)
-    ap.add_argument("--max-disp", type=float, default=12.0)
+    ap.add_argument("--max-disp", type=float, default=None)
     ap.add_argument(
         "--n-scenes", type=int, default=256,
         help="procedural scene pool size (too small -> the net memorizes it)",
     )
     ap.add_argument("--ckpt-dir", default="ckpts")
-    ap.add_argument("--resume", default=None, help="msgpack to warm-start from")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint to warm-start from (PWC-Net: msgpack; RAFT: a state dict)")
     ap.add_argument("--compute-dtype", default="float32")
     ap.add_argument(
         "--scenes", default="checker,shapes",
@@ -681,12 +815,17 @@ def _main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
-
-    from vstab_torch.utils.checkpoint import load_params, params_from_jax
+    if args.net == "raft":
+        cfg = RaftConfig(iters=12, compute_dtype=args.compute_dtype)
+    else:
+        cfg = FlowConfig(compute_dtype=args.compute_dtype, kernel_impl="auto")
+    recipe = _net(cfg)
+    for key, value in recipe.cli.items():
+        if getattr(args, key) is None:
+            setattr(args, key, value)
 
     kinds = tuple(args.scenes.split(","))
-    cfg = FlowConfig(compute_dtype=args.compute_dtype, kernel_impl="auto")
-    params = params_from_jax(load_params(args.resume)) if args.resume else None
+    params = recipe.load(args.resume) if args.resume else None
     params = train_fast(
         cfg, steps=args.steps, batch_size=args.batch, hw=tuple(args.hw),
         lr=args.lr, seed=args.seed, params=params, scan_len=args.scan_len,
@@ -707,7 +846,9 @@ if __name__ == "__main__":
 
 
 __all__ = [
+    "GAMMA",
     "LEVEL_WEIGHTS",
+    "MAX_FLOW",
     "ClippedAdamW",
     "cosine_decay",
     "cosine_schedule",
@@ -718,6 +859,7 @@ __all__ = [
     "make_train_step",
     "multiscale_epe",
     "photometric_loss",
+    "sequence_loss",
     "synthetic_batch",
     "train",
     "train_fast",

@@ -5,15 +5,21 @@ CUDA tensors, and raises on anything else. `KERNELS` maps each kernel's name
 to its `CudaKernel`, whose `launches` attribute counts its launches;
 `KERNELS_BWD` does the same for the two backward kernels that training runs
 (the gradients of the cost volume and of the feature warp), which no
-serving path launches, and `KERNELS_RAFT` for the kernel that only the RAFT
-flow network launches (its correlation lookup).
+serving path launches, and `KERNELS_RAFT` for the kernels that only the RAFT
+flow network launches (its correlation lookup, and that lookup's backward,
+which only RAFT's training launches).
 """
 
 from vstab_torch.kernels import corr_lookup as _corr
 from vstab_torch.kernels import cost_volume as _cv
 from vstab_torch.kernels import warp as _warp
 from vstab_torch.kernels import warp1d as _warp1d
-from vstab_torch.kernels.corr_lookup import corr_lookup, corr_lookup_plain
+from vstab_torch.kernels.corr_lookup import (
+    corr_lookup,
+    corr_lookup_backward,
+    corr_lookup_backward_plain,
+    corr_lookup_plain,
+)
 from vstab_torch.kernels.cost_volume import (
     cost_volume,
     cost_volume_backward,
@@ -46,7 +52,7 @@ KERNELS_BWD = {
     "cost_volume_bwd": _cv.KERNEL_BWD,
     "bilinear_warp_bwd": _warp.KERNEL_BWD,
 }
-KERNELS_RAFT = {"corr_lookup": _corr.KERNEL}
+KERNELS_RAFT = {"corr_lookup": _corr.KERNEL, "corr_lookup_bwd": _corr.KERNEL_BWD}
 
 
 def reset_launches() -> None:
@@ -63,6 +69,8 @@ __all__ = [
     "bilinear_warp_backward_plain",
     "bilinear_warp_plain",
     "corr_lookup",
+    "corr_lookup_backward",
+    "corr_lookup_backward_plain",
     "corr_lookup_plain",
     "cost_volume",
     "cost_volume_backward",

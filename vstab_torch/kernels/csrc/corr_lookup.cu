@@ -22,6 +22,16 @@
 // consecutive channels of the pixel's output row. At 720p (8 pairs, 90x160,
 // 4 levels, r = 4) that is 115,200 warps, a window read of at most 1.6 KB and
 // a 648-byte bf16 row each.
+//
+// Backward (`vstab_corr_lookup_bwd`, for training): d level_l[p] from g =
+// d out[p], the coordinates held fixed (RAFT detaches them). The window's
+// gradient is a gather: entry (row, col) takes the up to four samples whose
+// taps land on it, each with its forward weight, so no entry is summed by
+// two threads. No two pixels share a slice of the pyramid, so a warp writes
+// its pixel's slices whole: the window's entries where they lie inside the
+// level and 0 everywhere else, in one pass with no atomics and no separate
+// zero fill. Bound on the H100: bytes, the slices written (at 368x496, 4
+// levels, ~15 KB a pixel) far above the gradient row read and the windows.
 #include "common.cuh"
 
 namespace {
@@ -34,6 +44,12 @@ constexpr int kMaxWindow = kMaxSide * kMaxSide;
 
 struct Pyramid {
   const float* level[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+};
+
+struct Grads {
+  float* level[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
@@ -83,6 +99,57 @@ corr_lookup_kernel(Pyramid pyr, int levels, int radius, const float* __restrict_
   }
 }
 
+__global__ void __launch_bounds__(kWarps * 32)
+corr_lookup_bwd_kernel(Grads grad, int levels, int radius, const float* __restrict__ coords,
+                       const float* __restrict__ g, int npix) {
+  __shared__ float gs[kWarps][kMaxLevels * (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1)];
+  __shared__ float window[kWarps][kMaxWindow];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long pix = (long long)blockIdx.x * kWarps + warp;
+  if (pix >= npix) return;  // whole warps only: nothing below syncs the block
+  const int side = 2 * radius + 2, n = side * side, k = 2 * radius + 1, per = k * k;
+  const float* gp = g + pix * (long long)(levels * per);
+  for (int j = lane; j < levels * per; j += 32) gs[warp][j] = gp[j];
+  const float cx = coords[2 * pix], cy = coords[2 * pix + 1];
+  __syncwarp();
+  for (int l = 0; l < levels; ++l) {
+    const float s = 1.0f / (float)(1 << l);  // exact: a power of two
+    const float x = cx * s, y = cy * s;
+    const int h = grad.h[l], w = grad.w[l];
+    float x0 = floorf(x), y0 = floorf(y);
+    const float fx = x - x0, fy = y - y0;
+    // As the forward: far outside the level no entry lies inside it.
+    x0 = fminf(fmaxf(x0, -2.0f * side), (float)(w + side));
+    y0 = fminf(fmaxf(y0, -2.0f * side), (float)(h + side));
+    const int wx = (int)x0 - radius, wy = (int)y0 - radius;
+    const float* gl = gs[warp] + l * per;  // gl[a k + b]: x offset a - r, y offset b - r
+    for (int e = lane; e < n; e += 32) {
+      const int row = e / side, col = e - row * side;  // sample (a, b) reads rows b, b+1, cols a, a+1
+      const bool a0 = col < k, a1 = col >= 1, b0 = row < k, b1 = row >= 1;
+      float v = 0.0f;
+      if (a0 && b0) v += (1.0f - fx) * (1.0f - fy) * gl[col * k + row];
+      if (a1 && b0) v += fx * (1.0f - fy) * gl[(col - 1) * k + row];
+      if (a0 && b1) v += (1.0f - fx) * fy * gl[col * k + row - 1];
+      if (a1 && b1) v += fx * fy * gl[(col - 1) * k + row - 1];
+      window[warp][e] = v;
+    }
+    __syncwarp();
+    float* d = grad.level[l] + pix * (long long)h * w;
+    int yy = lane / w, xx = lane - yy * w;
+    for (int i = lane; i < h * w; i += 32) {
+      const int row = yy - wy, col = xx - wx;
+      d[i] = ((unsigned)row < (unsigned)side && (unsigned)col < (unsigned)side)
+                 ? window[warp][row * side + col] : 0.0f;
+      xx += 32;
+      while (xx >= w) {
+        xx -= w;
+        ++yy;
+      }
+    }
+    __syncwarp();  // the window is rewritten for the next level
+  }
+}
+
 }  // namespace
 
 // levels x (2r+1)^2 samples a pixel. l0..l3: the levels, [npix, h_l, w_l]
@@ -106,5 +173,21 @@ extern "C" int vstab_corr_lookup(const float* l0, const float* l1, const float* 
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return vstab::launch_status();
+}
+
+// The lookup's gradient in the pyramid. d0..d3: [npix, h_l, w_l] float32
+// each (unused ones may be null), written whole; coords: [npix, 2] float32,
+// as the forward's; g: [npix, levels (2r+1)^2] float32, d out.
+extern "C" int vstab_corr_lookup_bwd(float* d0, float* d1, float* d2, float* d3, int h0, int w0,
+                                     int h1, int w1, int h2, int w2, int h3, int w3, int levels,
+                                     int radius, const float* coords, const float* g, int npix,
+                                     cudaStream_t stream) {
+  if (levels < 1 || levels > kMaxLevels || radius < 1 || radius > kMaxRadius || npix < 0)
+    return (int)cudaErrorInvalidValue;
+  if (npix == 0) return 0;
+  Grads grad = {{d0, d1, d2, d3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
+  const dim3 blocks((npix + kWarps - 1) / kWarps), block(kWarps * 32);
+  corr_lookup_bwd_kernel<<<blocks, block, 0, stream>>>(grad, levels, radius, coords, g, npix);
   return vstab::launch_status();
 }
