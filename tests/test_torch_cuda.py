@@ -1451,6 +1451,93 @@ def test_raft_corr_pyramid_is_float32_on_the_timed_path(cuda, monkeypatch, compu
     assert all(v > PYRAMID_RTOL for k, v in readings.items() if k != "path")
 
 
+def _kernels_in_spans(prof, span: str, tmp_path) -> list:
+    """Names of the kernels launched inside the spans named `span` of a
+    profiled run, each found by the correlation id of its launch."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans, launches, kernels = [], {}, []
+    for e in json.loads(path.read_text())["traceEvents"]:
+        cat, args = e.get("cat"), e.get("args", {})
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        if cat == "user_annotation" and e.get("name") == span:
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launches[args["correlation"]] = e["ts"]
+        elif cat == "kernel" and "correlation" in args:
+            kernels.append((args["correlation"], e["name"]))
+    return [name for c, name in kernels if c in launches and any(a <= launches[c] <= b for a, b in spans)]
+
+
+def _is_sgemm(name: str) -> bool:
+    return "f32f32_f32f32" in name or "sgemm" in name.lower()
+
+
+# The route of RAFT's correlation product (`raft.corr_gemm`), held on the 720p
+# chunk of the test above: bfloat16 features take one bf16 product with
+# float32 sums and a float32 volume, the scale in its alpha, so the span
+# launches no f32 SGEMM and no elementwise kernel (the division over the
+# volume, the features' upcasts): the product and the three poolings alone.
+# Float32 features, and RAFT's training pass under autograd, keep the f32
+# SGEMM. The pyramid's error is read as in the test above.
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_raft_corr_takes_the_tensor_cores_for_bf16_features(cuda, monkeypatch, tmp_path, compute_dtype):
+    from torch.profiler import ProfilerActivity, profile
+
+    from vstab_torch.core.config import RaftConfig
+    from vstab_torch.flow import raft
+    from vstab_torch.utils import trace
+
+    cfg = RaftConfig(iters=1, compute_dtype=compute_dtype)
+    params = raft.prepare(raft.init_params(0, cfg, cuda), cfg)
+    real, seen = raft.corr_pyramid, []
+
+    def spy(f1, f2, levels):
+        out = real(f1, f2, levels)
+        hw = f1.shape[2] * f1.shape[3]
+        seen.append((f1[:1].clone(), f2[:1].clone(), [t[:hw].clone() for t in out]))
+        return out
+
+    monkeypatch.setattr(raft, "corr_pyramid", spy)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    frames = torch.rand((9, 720, 1280, 3), generator=g, device=cuda)
+    raft.estimate_flow_pairs(params, frames, cfg)  # cuBLAS's and cuDNN's first calls at these shapes
+    torch.cuda.synchronize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        raft.estimate_flow_pairs(params, frames, cfg)
+        torch.cuda.synchronize()
+    (rec,) = [r for r in trace.records() if r["name"] == "vstab.flow.raft.corr"]
+    trace.clear()
+    names = _kernels_in_spans(prof, "vstab.flow.raft.corr", tmp_path)
+    f1, f2, got = seen[-1]
+    err = _pyramid_error(got, f1, f2)
+    print(f"corr span ({compute_dtype} features): gemm={rec['attrs']['gemm']}, pyramid error / rms {err:.3e}, "
+          f"kernels {names}")
+    assert err < PYRAMID_RTOL
+    pools = [k for k in names if "avg_pool2d" in k]
+    assert len(pools) == 3
+    if compute_dtype == "bfloat16":
+        assert rec["attrs"]["gemm"] == "bf16_f32acc"
+        assert len(names) == 4 and not any(_is_sgemm(k) or "elementwise" in k for k in names), names
+    else:
+        assert rec["attrs"]["gemm"] == "f32"
+        assert any(_is_sgemm(k) for k in names), names
+
+    train = RaftConfig(iters=2, compute_dtype="float32")
+    net = raft.build_net(raft.init_params(0, train, cuda), train, cuda)
+    im = torch.rand((4, 64, 96, 3), generator=g, device=cuda)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        preds = net(im[:2], im[2:])
+        torch.cuda.synchronize()
+    (rec,) = [r for r in trace.records() if r["name"] == "vstab.flow.raft.corr"]
+    trace.clear()
+    assert preds[-1].requires_grad and rec["attrs"]["gemm"] == "f32"
+    assert any(_is_sgemm(k) for k in _kernels_in_spans(prof, "vstab.flow.raft.corr", tmp_path))
+
+
 # The lookup's backward (`vstab_corr_lookup_bwd`) against autograd of the
 # plain `grid_sample` version at the `train_raft_chairs` cell's shape: 10
 # pairs at 46x62, levels 46x62 / 23x31 / 11x15 / 5x7, radius 4, coordinates

@@ -21,6 +21,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -306,9 +307,51 @@ def test_spans_of_a_chunk(params):
     for name in ("encode", "corr", "update", "upsample"):
         assert recs[f"vstab.flow.raft.{name}"]["parent"] == chunk
     pairs = 8  # the chunk is padded to its full 8 pairs
-    assert recs["vstab.flow.raft.corr"]["attrs"]["corr_bytes"] == pairs * raft.pyramid_bytes(8, 12, 4)
+    corr = recs["vstab.flow.raft.corr"]["attrs"]
+    assert corr["corr_bytes"] == pairs * raft.pyramid_bytes(8, 12, 4)
+    assert corr["gemm"] == "f32"  # the tensor-core route is the card's alone
     upd = recs["vstab.flow.raft.update"]["attrs"]
     assert upd["iters"] == 20 and upd["lookup_bytes"] == 20 * pairs * 96 * (4 * 400 + 8 + 324 * 2)
+
+
+def _corr_pyramid_written_out(f1, f2, levels):
+    """The f32 route of `raft.corr_pyramid` written out: both upcast, one
+    f32 product, the division, the 2x2 poolings."""
+    n, c, h, w = f1.shape
+    a = f1.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
+    b = f2.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
+    corr = torch.bmm(a, b.transpose(1, 2)).div_(math.sqrt(c)).view(n * h * w, 1, h, w)
+    pyramid = [corr]
+    for _ in range(levels - 1):
+        pyramid.append(torch.nn.functional.avg_pool2d(pyramid[-1], 2, stride=2))
+    return [t.view(n * h * w, *t.shape[-2:]) for t in pyramid]
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_pyramid_on_the_cpu_is_the_f32_route_bit_for_bit(dtype, channels_last):
+    g = torch.Generator().manual_seed(5)
+    fmap = torch.randn((3, 256, 12, 20), generator=g).to(dtype)
+    if channels_last:
+        fmap = fmap.contiguous(memory_format=torch.channels_last)
+    assert raft.corr_gemm(fmap[:-1], fmap[1:]) == "f32"
+    got = raft.corr_pyramid(fmap[:-1], fmap[1:], 4)
+    want = _corr_pyramid_written_out(fmap[:-1], fmap[1:], 4)
+    assert [tuple(t.shape) for t in got] == [(480, 12, 20), (480, 6, 10), (480, 3, 5), (480, 1, 2)]
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+
+
+# Meta tensors stand in for the card's: the selector reads dtype, `is_cuda`
+# and `requires_grad`, never the values.
+@pytest.mark.parametrize("case,want", [("card_bf16", "bf16_f32acc"), ("cpu_bf16", "f32"), ("card_f32", "f32"),
+                                       ("card_bf16_f32", "f32"), ("card_bf16_requires_grad", "f32")])
+def test_corr_gemm_takes_the_tensor_cores_only_for_bf16_card_features_without_gradient(monkeypatch, case, want):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: case.startswith("card")))
+    f1 = torch.empty((2, 8, 4, 4), dtype=torch.float32 if case == "card_f32" else torch.bfloat16, device="meta")
+    f2 = f1.float() if case == "card_bf16_f32" else f1.clone()
+    f1.requires_grad_(case.endswith("requires_grad"))
+    assert raft.corr_gemm(f1, f2) == want
 
 
 def test_lookup_refuses_what_it_cannot_take():

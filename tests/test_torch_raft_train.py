@@ -394,7 +394,7 @@ def test_spans_of_a_training_step(params0, scenes):
     for name in ("encode", "corr", "update"):
         (rec,) = by[f"vstab.flow.raft.{name}"]
         assert rec["root"] == root
-    assert by["vstab.flow.raft.corr"][0]["attrs"]["corr_bytes"] == 2 * raft.pyramid_bytes(8, 12, 4)
+    assert by["vstab.flow.raft.corr"][0]["attrs"] == {"gemm": "f32", "corr_bytes": 2 * raft.pyramid_bytes(8, 12, 4)}
     upd = by["vstab.flow.raft.update"][0]
     assert upd["attrs"] == {"iters": 12, "lookup_bytes": 12 * 2 * 96 * (4 * 400 + 8 + 4 * 324)}
     ups = by["vstab.flow.raft.upsample"]

@@ -16,7 +16,9 @@ The state dict has RAFT's own names and shapes (its module tree without the
 without a converter. Precision follows RAFT's `--mixed_precision`: the
 encoders and the update block (motion encoder, GRU, flow head, mask head) in
 the compute dtype with float32 parameters; the correlation, its pyramid, the
-lookup, the coordinates and the convex upsampling in float32; TF32 off.
+lookup, the coordinates and the convex upsampling in float32; TF32 off. On
+the card the correlation of bfloat16 features is one bf16 product with
+float32 sums and a float32 volume (`corr_gemm`).
 
 One departure from the published code: in `test_mode` RAFT upsamples after
 every iteration and returns only the last result, so here the mask head and
@@ -243,14 +245,36 @@ def encode(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, kind: str,
     return _conv(p, name + ".conv2", x)
 
 
+def corr_gemm(f1: torch.Tensor, f2: torch.Tensor) -> str:
+    """The route of `corr_pyramid`'s product for these feature maps:
+    'bf16_f32acc' for bfloat16 CUDA tensors that need no gradient (one
+    batched bf16 x bf16 product on the tensor cores, float32 sums and
+    float32 out, the 1/sqrt(C) scale in its alpha: a product of two bfloat16
+    values is exact in float32, so only the order of the sums differs from
+    the f32 route), else 'f32' (both upcast, an f32 product with TF32 off,
+    then the division)."""
+    fast = (f1.dtype == f2.dtype == torch.bfloat16 and f1.is_cuda and f2.is_cuda
+            and not (f1.requires_grad or f2.requires_grad))
+    return "bf16_f32acc" if fast else "f32"
+
+
 def corr_pyramid(f1: torch.Tensor, f2: torch.Tensor, levels: int) -> List[torch.Tensor]:
     """All-pairs correlation f1^T f2 / sqrt(C) of [N,C,H,W] feature maps in
     float32, [N H W, H, W], and its `levels - 1` 2x2 average poolings over
-    the second frame's axes (RAFT's `CorrBlock`)."""
+    the second frame's axes (RAFT's `CorrBlock`); the product by the route
+    `corr_gemm` gives."""
     n, c, h, w = f1.shape
-    a = f1.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
-    b = f2.float().permute(0, 2, 3, 1).reshape(n, h * w, c)
-    corr = torch.bmm(a, b.transpose(1, 2)).div_(math.sqrt(c)).view(n * h * w, 1, h, w)
+    bf16 = corr_gemm(f1, f2) == "bf16_f32acc"
+    a, b = ((f if bf16 else f.float()).permute(0, 2, 3, 1).reshape(n, h * w, c) for f in (f1, f2))
+    if bf16:
+        # The volume is its own addend: with beta 0 nothing is read or copied
+        # into it before the product (a separate addend is copied in first).
+        corr = torch.empty((n, h * w, h * w), dtype=torch.float32, device=f1.device)
+        torch.baddbmm(corr, a, b.transpose(1, 2), out_dtype=torch.float32, beta=0,
+                      alpha=1 / math.sqrt(c), out=corr)
+    else:
+        corr = torch.bmm(a, b.transpose(1, 2)).div_(math.sqrt(c))
+    corr = corr.view(n * h * w, 1, h, w)
     pyramid = [corr]
     for _ in range(levels - 1):
         pyramid.append(F.avg_pool2d(pyramid[-1], 2, stride=2))
@@ -363,7 +387,7 @@ def estimate_flow_pairs(p: Mapping[str, torch.Tensor], frames: torch.Tensor,
         net = torch.tanh(ctx[:, : cfg.hidden]).contiguous(memory_format=_CL)
         inp = torch.relu(ctx[:, cfg.hidden :]).contiguous(memory_format=_CL)
     n, h8, w8 = t - 1, fmap.shape[2], fmap.shape[3]
-    with trace.span("vstab.flow.raft.corr", device=dev,
+    with trace.span("vstab.flow.raft.corr", device=dev, gemm=corr_gemm(fmap[:-1], fmap[1:]),
                     corr_bytes=n * pyramid_bytes(h8, w8, cfg.corr_levels)):
         pyramid = corr_pyramid(fmap[:-1], fmap[1:], cfg.corr_levels)
     del fmap
@@ -413,7 +437,8 @@ def train_forward(p: Mapping[str, torch.Tensor], im1: torch.Tensor, im2: torch.T
         net = torch.tanh(ctx[:, : cfg.hidden]).contiguous(memory_format=_CL)
         inp = torch.relu(ctx[:, cfg.hidden :]).contiguous(memory_format=_CL)
     h8, w8 = h // 8, w // 8
-    with trace.span("vstab.flow.raft.corr", device=dev, corr_bytes=n * pyramid_bytes(h8, w8, cfg.corr_levels)):
+    with trace.span("vstab.flow.raft.corr", device=dev, gemm=corr_gemm(fmap[:n], fmap[n:]),
+                    corr_bytes=n * pyramid_bytes(h8, w8, cfg.corr_levels)):
         pyramid = corr_pyramid(fmap[:n], fmap[n:], cfg.corr_levels)
     yy, xx = torch.meshgrid(torch.arange(h8, device=im1.device, dtype=torch.float32),
                             torch.arange(w8, device=im1.device, dtype=torch.float32), indexing="ij")
@@ -457,6 +482,7 @@ __all__ = [
     "RAFT",
     "build_net",
     "convex_upsample",
+    "corr_gemm",
     "corr_pyramid",
     "encode",
     "estimate_flow_pairs",
